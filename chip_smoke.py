@@ -5,26 +5,38 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises and exits non-zero before
+Phases (each prints its lines; any failure raises and exits non-zero before
 the final line):
   1. environment: torch / CUDA versions, the card's name and power limit;
+     every world below is rendered in one process pool;
   2. build: compiles csrc/klt.cu with nvcc for sm_90a into build/kernels/;
   3. kernels: `klt_level` (2-D and epi1d, all three pyramid level sizes) and
      `klt_scale` (s = 1 and s != 1) on KITTI-size corridor frames with
      N = 1024 features, each against its plain PyTorch version on the same
      inputs, with CUDA-event timings of both;
-  4. main path: `StereoVO(cfg, device="cuda")` at the bench.py configuration
-     over 1 + 24 frames of the bench.py corridor world (at 0.25 m/frame, see
-     STEP_M) through
-     `track_stereo_images`; checks kernel launch counts, BA keyframes and the
-     trajectory error against ground truth, and times steady and keyframe
-     steps.
-The last two lines are the kernel table and {"ok": true, "device": ...}.
-This script imports no JAX.
+  4. per-frame path: `StereoVO(cfg, device="cuda")` at the bench.py
+     configuration over 1 + 18 frames of the bench corridor at 0.25 m/frame
+     through `track_stereo_images`; times steady and keyframe steps;
+  5. per-stage times: 6 more frames of the same run with `timed=True`;
+     checks kernel launches, BA keyframes and the 25-frame trajectory error;
+  6. serving path: bench.py's workload -- the corridor at bench.py's
+     0.8 m/frame, 1 + 24 uint8 frames through `track_stereo_batch` in two
+     calls (1 + 12, then 12); tracking-loss recovery must fire; checks
+     launches, trajectory error and post-recovery RPE against the JAX
+     package's CPU run, and times the batch calls;
+  7. rectification: the same tracker and map configuration with
+     `flagDoUndistortion=True` on the 640x480 plane world rendered through
+     radtan-distorted lenses, 1 + 8 frames at 0.22 m/frame through
+     `track_stereo_batch`.
+Every path is driven with the kernel launch counts set to 0 just before it
+and read just after. The last two lines are the kernel table (launches of
+the serving path) and {"ok": true, "device": ...}. This script imports no
+JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -35,7 +47,6 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-N_FRAMES = 25  # 1 first frame + 24 tracked frames
 N_FEAT = 1024
 
 # Kernel vs plain version, same inputs. Only the summation order (warp
@@ -48,17 +59,39 @@ TOL_FAR_PX = 0.05  # a jointly-live feature farther apart than this is "divergen
 TOL_FAR_SHARE = 0.005  # at most 0.5% divergent features
 TOL_FLAG_AGREE = 0.995  # live/ok flags agree on at least 99.5% of features
 
-# The bench.py world is driven at 0.25 m/frame (forward_trajectory's
-# default), not bench.py's 0.8: at 0.8 (and 0.4) m/frame the JAX reference
-# itself fails its pose from the first tracked frame and needs tracking-loss
-# recovery, which this port does not have yet (ROADMAP.md A.10).
-STEP_M = 0.25
-# Trajectory error bound (metric, no alignment). The JAX package's own CPU
-# run over the same 25 frames, cropped to the central 620 columns
-# (cx shifted, 512 tracks — the full-width run is too large for a CPU
-# check), scored ATE 0.01042 m, and the port's plain leg matched it to 1e-6 m.
-# Bound: 3x that.
+# Per-frame path: the bench corridor at 0.25 m/frame, 1 + 24 frames, of which
+# the last N_TIMED run with timed=True. ATE bound: the JAX package's CPU run
+# over the same 25 frames cropped to the central 620 columns (cx shifted,
+# 512 tracks -- the full-width run is too large for a CPU check) scored
+# 0.01042 m; the port's plain leg matched it to 1e-6 m. Bound: 3x that.
+STEP_MAIN = 0.25
+N_MAIN = 25
+N_TIMED = 6
 ATE_BOUND_M = 0.03
+
+# Serving path: bench.py's step and batch (bench.py:27,59), 1 + 24 frames.
+# At 0.8 m/frame the pose fails from the first tracked frame and recovery
+# fires, in the JAX package as in the port. Bounds: 3x the JAX package's CPU
+# run on the same 25 frames cropped as above (track_stereo_batch, 1 + 12 then
+# 12): ATE 10.4508 m; RPE over the frames from its last recovery (frame 19)
+# on, 0.4487 m and 0.2203 deg per frame.
+STEP_BENCH = 0.8
+N_BENCH = 25
+ATE_BENCH_BOUND_M = 3 * 10.4508
+RPE_POST_BOUND = (3 * 0.4487, 3 * 0.2203)  # (m, deg) per frame
+
+# Rectification: the world, lenses, step and bound of
+# tests/test_stereo_vo_pipeline.py's distorted run (radtan on both lenses,
+# the 640x480 plane world, 0.22 m/frame, ATE < 5% of the distance), 1 + 8
+# frames, with the bench configuration's tracks, arena, window and tracker.
+# The bench corridor is not used here: at its full 1241-column width the
+# pose fails on the first tracked frame once N is cut to 512, distorted or
+# not, in the JAX package as in the port (CPU runs), and the rectified run
+# at N = 1024 lost 1.1 m over 2 m on the card.
+DIST = (-0.28, 0.07, 1e-4, -1e-4, 0.0)
+STEP_DIST = 0.22
+N_DIST = 9
+ATE_DIST_BOUND_M = 0.05 * STEP_DIST * (N_DIST - 1)
 
 
 def bench_config():
@@ -80,11 +113,24 @@ def bench_config():
     return cfg
 
 
-def _world(n, step=None):
-    """bench.py:53-76 — corridor fit around the forward trajectory."""
-    from visual_odometry_ros_tpu_torch.io import CorridorSequence, forward_trajectory
+@functools.lru_cache(maxsize=None)
+def _world(kind: str):
+    """(world, poses) of one run: "main" is the corridor at 0.25 m/frame,
+    "bench" bench.py's at 0.8 m/frame (bench.py:53-76: a corridor fit around
+    the trajectory), "distorted" the plane world through radtan lenses."""
+    from visual_odometry_ros_tpu_torch.io import (
+        CorridorSequence,
+        DistortedStereoSequence,
+        PlaneSequence,
+        forward_trajectory,
+    )
 
-    poses = forward_trajectory(n, step=STEP_M if step is None else step, yaw_rate=0.0015)
+    if kind == "distorted":
+        plane = PlaneSequence(z0=14.0, sx=0.3, sy=0.15, baseline=0.5)
+        return (DistortedStereoSequence(plane, np.asarray(DIST)),
+                forward_trajectory(N_DIST, step=STEP_DIST, yaw_rate=0.0015))
+    step, n = (STEP_BENCH, N_BENCH) if kind == "bench" else (STEP_MAIN, N_MAIN)
+    poses = forward_trajectory(n, step=step, yaw_rate=0.0015)
     world = CorridorSequence.fit(
         poses, width=1241, height=376, fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
         baseline=0.5371657, wall_tex_size=256, wall_tex_scale=40.0,
@@ -92,22 +138,29 @@ def _world(n, step=None):
     return world, poses
 
 
-def render_pair(i: int, step=None):
-    """Frame i of the bench world as camera-native uint8 (left, right)."""
-    world, poses = _world(N_FRAMES, step)
+def render_pair(job):
+    """Frame i of world `kind` as camera-native uint8 (left, right)."""
+    kind, i = job
+    world, poses = _world(kind)
     l, r = world.stereo_pair(poses[i].astype(np.float64))
     return np.clip(l, 0, 255).astype(np.uint8), np.clip(r, 0, 255).astype(np.uint8)
 
 
 def make_frames():
+    """{kind: (uint8 left [n, H, W], uint8 right, poses)} for every run."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
+    sizes = {"main": N_MAIN, "bench": N_BENCH, "distorted": N_DIST}
+    jobs = [(k, i) for k, n in sizes.items() for i in range(n)]
     workers = max(1, min(8, os.cpu_count() or 1))
     with ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn")) as ex:
-        pairs = list(ex.map(render_pair, range(N_FRAMES)))
-    _, poses = _world(N_FRAMES)
-    return pairs, poses
+        pairs = list(ex.map(render_pair, jobs))
+    out = {}
+    for k, n in sizes.items():
+        mine = [p for (kind, _), p in zip(jobs, pairs) if kind == k]
+        out[k] = (np.stack([l for l, _ in mine]), np.stack([r for _, r in mine]), _world(k)[1][:n])
+    return out
 
 
 def gpu_name_power() -> str:
@@ -163,6 +216,174 @@ def compare(name, p_k, ok_k, p_r, ok_r):
     return res
 
 
+def launched(phase: str) -> dict:
+    """The kernel launch counts since the last reset; both kernels must have run."""
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    counts = dict(KK.LAUNCHES)
+    for name in ("klt_level", "klt_scale"):
+        assert counts[name] > 0, f"{phase}: the path never launched {name}"
+    return counts
+
+
+def sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def per_frame_path(frames, device, card):
+    """Phases 4 and 5: the 0.25 m/frame corridor through track_stereo_images,
+    the last N_TIMED frames with timed=True."""
+    from visual_odometry_ros_tpu_torch.io import ate_rmse
+    from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    pairs = list(zip(frames["main"][0], frames["main"][1]))
+    poses_main = frames["main"][2]
+    vo = StereoVO(bench_config(), device=device)
+    kf_ms = []
+    orig_kf = vo._keyframe_step
+
+    def timed_kf(state):
+        sync(device)
+        t = time.perf_counter()
+        out = orig_kf(state)
+        sync(device)
+        kf_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    vo._keyframe_step = timed_kf
+    n_plain = N_MAIN - N_TIMED
+    KK.reset_launch_counts()
+    frame_ms = []
+    for il, ir in pairs[:n_plain]:
+        sync(device)
+        t = time.perf_counter()
+        vo.track_stereo_images(il, ir)
+        sync(device)
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+    launches = launched("per-frame path")
+    steady = [ms for ms, s in zip(frame_ms[3:], vo.stats_log[3:]) if not s["keyframe"]]
+    print(f"time steady frame: median {statistics.median(steady):.2f} ms over {len(steady)} frames; "
+          f"keyframe step: median {statistics.median(kf_ms[1:] or kf_ms):.2f} ms over "
+          f"{len(kf_ms)} keyframes; first frame {frame_ms[0]:.1f} ms; on {card}")
+
+    KK.reset_launch_counts()
+    stage_ms, timed_frame_ms = [], []
+    for il, ir in pairs[n_plain:]:
+        sync(device)
+        t = time.perf_counter()
+        _, st = vo.track_stereo_images(il, ir, timed=True)
+        sync(device)
+        timed_frame_ms.append((time.perf_counter() - t) * 1e3)
+        stage_ms.append(st["stage_ms"])
+    launched("timed path")
+    keys = ("time_track", "time_stereo", "time_pose", "time_new", "time_ba")
+    med = {k: statistics.median(d[k] for d in stage_ms if k in d) for k in keys
+           if any(k in d for d in stage_ms)}
+    print(json.dumps({"stage_ms_median": med, "frames": len(stage_ms),
+                      "keyframes": sum("time_ba" in d for d in stage_ms),
+                      "frame_ms_median": statistics.median(timed_frame_ms), "card": card}))
+    traj = np.stack(vo.trajectory)
+    assert traj.shape == (N_MAIN, 4, 4) and np.isfinite(traj).all(), "non-finite trajectory"
+    ate = ate_rmse(traj, poses_main, align="none")
+    kfs = [s for s in vo.stats_log[1:] if s["keyframe"]]
+    n_ba_ok = sum(1 for s in kfs if s["ba_err"] is not None and not s["ba_rejected"])
+    print(json.dumps({
+        "path": "StereoVO.track_stereo_images", "step_m": STEP_MAIN, "frames": N_MAIN,
+        "ate_m": ate, "ate_bound_m": ATE_BOUND_M, "keyframes": len(kfs), "ba_accepted": n_ba_ok,
+        "ba_err_px": [s["ba_err"] for s in kfs], "launches": launches,
+        "pose_ok": sum(1 for s in vo.stats_log[1:] if s["pose_ok"]),
+        "last_n_inliers": vo.stats_log[-1]["n_inliers"],
+    }))
+    for d in stage_ms:
+        assert all(d[k] > 0 for k in keys[:4]), d
+    assert n_ba_ok >= 2, f"only {n_ba_ok} accepted BA keyframes"
+    assert ate <= ATE_BOUND_M, f"ATE {ate:.4f} m above bound {ATE_BOUND_M:.4f} m"
+
+
+def serving_path(frames, device, card) -> dict:
+    """Phase 6: bench.py's 0.8 m/frame workload through track_stereo_batch.
+    Returns its kernel launch counts."""
+    from visual_odometry_ros_tpu_torch.io import ate_rmse, rpe
+    from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    il, ir, poses = frames["bench"]
+    vo = StereoVO(bench_config(), device=device)
+    KK.reset_launch_counts()
+    batch_s = []
+    for a, b in ((0, 13), (13, N_BENCH)):
+        sync(device)
+        t = time.perf_counter()
+        vo.track_stereo_batch(il[a:b], ir[a:b])
+        sync(device)
+        batch_s.append((b - a, time.perf_counter() - t))
+    launches = launched("serving path")
+    traj = np.stack(vo.trajectory)
+    assert traj.shape == (N_BENCH, 4, 4) and np.isfinite(traj).all(), "non-finite trajectory"
+    modes = [s.get("recovered", 0) for s in vo.stats_log]
+    rec = [i for i, m in enumerate(modes) if m]
+    assert rec, f"recovery never fired at {STEP_BENCH} m/frame: modes {modes}"
+    last = rec[-1]
+    assert last <= N_BENCH - 3, f"recovered at frame {last}: too few frames after it"
+    ate = ate_rmse(traj, poses, align="none")
+    rpe_t, rpe_r = rpe(traj[last:], poses[last:])
+    print(json.dumps({
+        "path": "StereoVO.track_stereo_batch", "step_m": STEP_BENCH, "frames": N_BENCH,
+        "batches": [n for n, _ in batch_s], "recovered": modes,
+        "pose_ok": [bool(s.get("pose_ok", True)) for s in vo.stats_log],
+        "keyframes": [s["frame"] for s in vo.stats_log if s.get("keyframe")],
+        "launches": launches, "ate_m": ate, "ate_bound_m": ATE_BENCH_BOUND_M,
+        "last_recovery": last, "rpe_post_m_deg": [rpe_t, rpe_r], "rpe_post_bound": RPE_POST_BOUND,
+    }))
+    print("time serving path: " + "; ".join(f"batch of {n}: {n / sec:.2f} frames/s ({sec * 1e3:.1f} ms)"
+                                            for n, sec in batch_s)
+          + f"; synchronised host clock, the first batch holds the bootstrap frame; on {card}")
+    assert ate <= ATE_BENCH_BOUND_M, f"ATE {ate:.3f} m above bound {ATE_BENCH_BOUND_M:.3f} m"
+    assert rpe_t <= RPE_POST_BOUND[0] and rpe_r <= RPE_POST_BOUND[1], (
+        f"post-recovery RPE {rpe_t:.4f} m / {rpe_r:.4f} deg above {RPE_POST_BOUND}")
+    return launches
+
+
+def rectification_path(frames, device, card):
+    """Phase 7: distorted lenses, flagDoUndistortion=True, track_stereo_batch."""
+    from visual_odometry_ros_tpu_torch.io import ate_rmse
+    from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    il, ir, poses = frames["distorted"]
+    cfg = bench_config()
+    c = cfg.cam
+    c.width, c.height, c.fx, c.fy, c.cx, c.cy = 640, 480, 500.0, 500.0, 320.0, 240.0
+    c.k1, c.k2, c.p1, c.p2, c.k3 = DIST
+    cfg.cam_right = c
+    cfg.T_lr[0, 3] = 0.5
+    cfg.flagDoUndistortion = True
+    vo = StereoVO(cfg, device=device)
+    KK.reset_launch_counts()
+    sync(device)
+    t = time.perf_counter()
+    vo.track_stereo_batch(il, ir)
+    sync(device)
+    sec = time.perf_counter() - t
+    launches = launched("rectification path")
+    traj = np.stack(vo.trajectory)
+    assert traj.shape == (N_DIST, 4, 4) and np.isfinite(traj).all(), "non-finite trajectory"
+    ate = ate_rmse(traj, poses, align="none")
+    print(json.dumps({
+        "path": "StereoVO.track_stereo_batch, flagDoUndistortion", "step_m": STEP_DIST,
+        "frames": N_DIST, "dist": DIST, "rect_fx_cx_cy": [vo.fx, vo.cx, vo.cy],
+        "ate_m": ate, "ate_bound_m": ATE_DIST_BOUND_M, "launches": launches,
+        "pose_ok": sum(1 for s in vo.stats_log[1:] if s["pose_ok"]),
+        "recovered": [s.get("recovered", 0) for s in vo.stats_log],
+        "batch_ms": sec * 1e3, "card": card,
+    }))
+    assert ate <= ATE_DIST_BOUND_M, f"ATE {ate:.4f} m above bound {ATE_DIST_BOUND_M:.4f} m"
+
+
 def main() -> int:
     import torch
 
@@ -170,8 +391,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA GPU")
     sys.path.insert(0, ROOT)
-    from visual_odometry_ros_tpu_torch.io import ate_rmse
-    from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO
     from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
     from visual_odometry_ros_tpu_torch.ops.pyramid import build_pyramid
 
@@ -181,8 +400,11 @@ def main() -> int:
     print(card)
 
     t0 = time.perf_counter()
-    pairs, poses = make_frames()
-    print(f"data: {len(pairs)} stereo pairs 1241x376 rendered in {time.perf_counter() - t0:.1f} s")
+    frames = make_frames()
+    print(f"data: {sum(len(v[0]) for v in frames.values())} stereo pairs "
+          f"({', '.join(f'{k} {v[0].shape}' for k, v in frames.items())}) rendered in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pairs = list(zip(frames["main"][0], frames["main"][1]))
 
     # 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -247,51 +469,12 @@ def main() -> int:
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms (N={N_FEAT}, level 0, "
               f"median of 20 CUDA-event timings) on {card}")
 
-    # 4. main path ----------------------------------------------------------
-    vo = StereoVO(bench_config(), device="cuda")
-    kf_ms = []
-    orig_kf = vo._keyframe_step
+    # 4.-7. the paths -------------------------------------------------------
+    per_frame_path(frames, dev, card)
+    launches = serving_path(frames, dev, card)
+    rectification_path(frames, dev, card)
 
-    def timed_kf(state):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = orig_kf(state)
-        torch.cuda.synchronize()
-        kf_ms.append((time.perf_counter() - t) * 1e3)
-        return out
-
-    vo._keyframe_step = timed_kf
-    KK.reset_launch_counts()
-    frame_ms = []
-    for il, ir in pairs:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        vo.track_stereo_images(il, ir)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t) * 1e3)
-    launches = dict(KK.LAUNCHES)
-    traj = np.stack(vo.trajectory)
-    assert traj.shape == (N_FRAMES, 4, 4) and np.isfinite(traj).all(), "non-finite trajectory"
-    ate = ate_rmse(traj, poses, align="none")
-    kfs = [s for s in vo.stats_log[1:] if s["keyframe"]]
-    n_ba_ok = sum(1 for s in kfs if s["ba_err"] is not None and not s["ba_rejected"])
-    steady = [ms for ms, s in zip(frame_ms[3:], vo.stats_log[3:]) if not s["keyframe"]]
-    print(json.dumps({
-        "main_path": "StereoVO.track_stereo_images", "frames": N_FRAMES,
-        "ate_m": ate, "ate_bound_m": ATE_BOUND_M, "keyframes": len(kfs), "ba_accepted": n_ba_ok,
-        "ba_err_px": [s["ba_err"] for s in kfs], "launches": launches,
-        "pose_ok": sum(1 for s in vo.stats_log[1:] if s["pose_ok"]),
-        "last_n_inliers": vo.stats_log[-1]["n_inliers"],
-    }))
-    print(f"time steady frame: median {statistics.median(steady):.2f} ms over {len(steady)} frames; "
-          f"keyframe step: median {statistics.median(kf_ms[1:] or kf_ms):.2f} ms over "
-          f"{len(kf_ms)} keyframes; first frame {frame_ms[0]:.1f} ms; on {card}")
-    for name in ("klt_level", "klt_scale"):
-        assert launches[name] > 0, f"main path never launched {name}"
-    assert n_ba_ok >= 2, f"only {n_ba_ok} accepted BA keyframes"
-    assert ate <= ATE_BOUND_M, f"ATE {ate:.4f} m above bound {ATE_BOUND_M:.4f} m"
-
-    # 5. result ------------------------------------------------------------
+    # 8. result ------------------------------------------------------------
     replaces = {
         "klt_level": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:380",
         "klt_scale": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:621",

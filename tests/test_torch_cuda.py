@@ -16,9 +16,13 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from visual_odometry_ros_tpu_torch import camera as TC  # noqa: E402
 from visual_odometry_ros_tpu_torch import io as tio  # noqa: E402
 from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO  # noqa: E402
+from visual_odometry_ros_tpu_torch.ops import features as TF  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK  # noqa: E402
+from visual_odometry_ros_tpu_torch.ops import pnp as TPNP  # noqa: E402
+from visual_odometry_ros_tpu_torch.utils import geometry as TG  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -99,10 +103,8 @@ def test_kernel_wrappers_refuse_what_they_cannot_serve(dev):
         KK.track_scale(a, b, p0, p0, torch.ones(len(p0), device=dev), valid, radius=12)
 
 
-@pytest.mark.cuda
-def test_pipeline_runs_on_cuda_through_the_kernels(dev):
-    world = tio.PlaneSequence(z0=14.0, sx=0.3, sy=0.15, baseline=0.5)
-    poses = tio.forward_trajectory(12, step=0.22, yaw_rate=0.0015)
+def plane_cfg():
+    """tests/test_stereo_vo_pipeline.py:_small_cfg."""
     cfg = tio.VOConfig()
     cfg.cam.fx = cfg.cam.fy = 500.0
     cfg.cam.cx, cfg.cam.cy = 320.0, 240.0
@@ -120,7 +122,14 @@ def test_pipeline_runs_on_cuda_through_the_kernels(dev):
     cfg.keyframe.thres_translation = 1.0
     cfg.tracker.max_level = 3
     cfg.tracker.max_iter = 15
-    vo = StereoVO(cfg, device=dev)
+    return cfg
+
+
+@pytest.mark.cuda
+def test_pipeline_runs_on_cuda_through_the_kernels(dev):
+    world = tio.PlaneSequence(z0=14.0, sx=0.3, sy=0.15, baseline=0.5)
+    poses = tio.forward_trajectory(12, step=0.22, yaw_rate=0.0015)
+    vo = StereoVO(plane_cfg(), device=dev)
     KK.reset_launch_counts()
     for T in poses:
         vo.track_stereo_images(*world.stereo_pair(T.astype(np.float64)))
@@ -129,3 +138,94 @@ def test_pipeline_runs_on_cuda_through_the_kernels(dev):
     # Bounds of tests/test_stereo_vo_pipeline.py.
     assert tio.ate_rmse(traj, poses, align="none") < 0.05 * 0.22 * 11
     assert sum(1 for s in vo.stats_log if s.get("ba_err") is not None and not s["ba_rejected"]) >= 2
+
+
+def descriptor_sets(seed):
+    """Descriptor bytes with deliberate ties (duplicated rows in both sets)
+    and near copies that pass the ratio test."""
+    rng = np.random.default_rng(seed)
+    db = rng.integers(0, 256, (5000, 32)).astype(np.int32)  # > one chunk of the distance matrix
+    db[40] = db[41]
+    da = db[rng.choice(5000, 512, replace=False)].copy()
+    flip = rng.integers(0, 256, da.shape) & rng.integers(0, 256, da.shape) & rng.integers(0, 256, da.shape)
+    da ^= np.where(rng.random(da.shape) < 0.15, flip, 0).astype(np.int32)
+    da[10] = da[11]
+    da[20] = db[40]
+    da[30] = db[7]
+    da[31] = db[7]
+    return da, rng.random(512) > 0.1, db, rng.random(5000) > 0.1
+
+
+@pytest.mark.cuda
+def test_hamming_matching_on_cuda_equals_cpu(dev):
+    """Integer distances and first-index tie breaking: exactly the CPU's."""
+    da, va, db, vb = (torch.as_tensor(x) for x in descriptor_sets(3))
+    d_cpu = TF.hamming_distance_matrix(da, db)
+    d_gpu = TF.hamming_distance_matrix(da.to(dev), db.to(dev))
+    assert torch.equal(d_gpu.cpu(), d_cpu)
+    m_cpu, ok_cpu = TF.match_descriptors(da, va, db, vb, max_dist=60)
+    m_gpu, ok_gpu = TF.match_descriptors(da.to(dev), va.to(dev), db.to(dev), vb.to(dev), max_dist=60)
+    assert torch.equal(ok_gpu.cpu(), ok_cpu) and torch.equal(m_gpu.cpu(), m_cpu)
+    assert int(ok_cpu.sum()) > 100
+
+
+@pytest.mark.cuda
+def test_pnp_ransac_on_cuda_matches_cpu(dev):
+    """The same injected draws on both devices: T_cw to 1e-4, the same
+    inlier mask and count (cuSOLVER against LAPACK eigh/SVD, float32)."""
+    rng = np.random.default_rng(3)
+    n = 256
+    Xw = np.stack([rng.uniform(-6, 6, n), rng.uniform(-4, 4, n), rng.uniform(4, 30, n)], -1).astype(np.float32)
+    T_cw = TG.se3_exp(torch.tensor([0.4, -0.15, 0.2, 0.03, 0.08, -0.02])).numpy()
+    Xc = Xw @ T_cw[:3, :3].T + T_cw[:3, 3]
+    pts = np.stack([Xc[:, 0] / Xc[:, 2] * 700 + 320, Xc[:, 1] / Xc[:, 2] * 700 + 240], -1).astype(np.float32)
+    pts += rng.normal(0, 0.05, pts.shape).astype(np.float32)
+    out = rng.choice(n, 77, replace=False)
+    pts[out] += rng.uniform(25, 90, (77, 2)).astype(np.float32)
+    valid = torch.as_tensor(rng.random(n) > 0.1)
+    idx = TPNP.sample_minimal_sets(valid, 64, torch.Generator().manual_seed(5))
+    args = (torch.as_tensor(Xw), torch.as_tensor(pts), valid, 700.0, 700.0, 320.0, 240.0)
+    r_cpu = TPNP.pnp_ransac(*args, idx=idx)
+    r_gpu = TPNP.pnp_ransac(*(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args), idx=idx.to(dev))
+    assert bool(r_cpu.ok) and bool(r_gpu.ok)
+    torch.testing.assert_close(r_gpu.T_cw.cpu(), r_cpu.T_cw, atol=1e-4, rtol=0)
+    assert torch.equal(r_gpu.inliers.cpu(), r_cpu.inliers) and int(r_gpu.n_inliers) == int(r_cpu.n_inliers)
+
+
+@pytest.mark.cuda
+def test_rectification_on_cuda_matches_cpu(dev):
+    """Maps built on each device, remapped through bilinear_sample: 1e-4 in
+    intensity on a smooth image."""
+    dist_l = [-0.28, 0.07, 1e-4, -1e-4, 0.0]
+    dist_r = [-0.25, 0.05, -2e-4, 1e-4, 0.01]
+    T_lr = TG.se3_exp(torch.tensor([0.5, 0.02, -0.01, 0.01, -0.02, 0.015]))
+    img_l = torch.as_tensor(smooth_noise(120, 160, 1, smooth=6))
+    img_r = torch.as_tensor(smooth_noise(120, 160, 2, smooth=6))
+    out = []
+    for d in ("cpu", dev):
+        left = TC.make_camera(150.0, 152.0, 81.0, 58.5, dist_l, 160, 120, device=d)
+        right = TC.make_camera(148.0, 149.0, 79.5, 61.0, dist_r, 160, 120, device=d)
+        st = TC.make_stereo_camera(left, right, T_lr)
+        out.append([x.cpu() for x in TC.rectify_stereo_images(st, img_l.to(d), img_r.to(d))])
+    for a, b in zip(out[1], out[0]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_recovery_on_cuda_relocalizes_after_blackout(dev):
+    """tests/test_stereo_vo_pipeline.py's blackout world on the card, with
+    the port's own draws from CUDA generators: descriptor relocalization
+    (mode 3) fires and the final pose is within 0.25 m of the truth."""
+    world = tio.PlaneSequence(z0=14.0, sx=0.3, sy=0.15, baseline=0.5)
+    poses = tio.forward_trajectory(6, step=0.22, yaw_rate=0.0015)
+    poses = np.concatenate([poses, np.repeat(poses[-1:], 8, axis=0)])
+    rng = np.random.default_rng(3)
+    vo = StereoVO(plane_cfg(), device=dev)
+    for i, T in enumerate(poses):
+        il, ir = world.stereo_pair(T.astype(np.float64))
+        if 6 <= i < 9:
+            il = rng.uniform(0, 255, il.shape).astype(np.float32)
+            ir = rng.uniform(0, 255, ir.shape).astype(np.float32)
+        vo.track_stereo_images(il, ir)
+    assert 3 in [s.get("recovered", 0) for s in vo.stats_log]
+    assert np.linalg.norm(vo.trajectory[-1][:3, 3] - poses[-1][:3, 3]) < 0.25

@@ -4,6 +4,7 @@ World: the tests/test_stereo_vo_pipeline.py plane sequence (640x480,
 N = 384 tracks, 12 frames). The JAX pipeline runs with its jnp KLT leg (the
 CPU default); the port runs its plain leg ("off") for tight parity and its
 kernel leg ("on", plain kernel versions on CPU) against ground truth.
+Checkpoints cross between the two packages in both directions.
 """
 
 import os
@@ -20,10 +21,12 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from visual_odometry_ros_tpu.config import VOConfig as JConfig  # noqa: E402
+from visual_odometry_ros_tpu.io import checkpoint as JCK  # noqa: E402
 from visual_odometry_ros_tpu.io.synthetic import PlaneSequence, forward_trajectory  # noqa: E402
 from visual_odometry_ros_tpu.io.trajectory import ate_rmse, rpe  # noqa: E402
 from visual_odometry_ros_tpu.models.stereo_vo import StereoVO as JVO  # noqa: E402
 from visual_odometry_ros_tpu_torch import io as tio  # noqa: E402
+from visual_odometry_ros_tpu_torch.io import checkpoint as TCK  # noqa: E402
 from visual_odometry_ros_tpu_torch.models.stereo_vo import (  # noqa: E402
     StereoVO as TVO,
     state_from_numpy,
@@ -67,11 +70,16 @@ def seq():
 
 
 @pytest.fixture(scope="module")
-def jax_run(seq):
+def jvo():
+    return JVO(small_cfg(JConfig))  # "auto" = jnp leg on CPU, same programs as the pipeline tests
+
+
+@pytest.fixture(scope="module")
+def jax_run(seq, jvo):
     """Drive the JAX pipeline frame by frame (as track_stereo_images does),
     keeping numpy snapshots of the state around each step."""
     _, frames = seq
-    vo = JVO(small_cfg(JConfig))  # "auto" = jnp leg on CPU, same programs as the pipeline tests
+    vo = jvo
     recs = []
     state = None
     for il, ir in frames:
@@ -178,17 +186,104 @@ def test_full_run_kernel_leg_tracks_ground_truth(seq):
     assert len(ba) >= 2 and all(e < 1.0 for e in ba)
 
 
-def test_undistortion_not_ported():
-    cfg = small_cfg(tio.VOConfig)
-    cfg.flagDoUndistortion = True
-    with pytest.raises(NotImplementedError, match="A.12"):
-        TVO(cfg)
+def test_timed_stages_stats_and_debug_overlay(seq):
+    """tests/test_stereo_vo_pipeline.py:test_stage_timing_stats_and_debug_overlay
+    on the port: timed=True fills every stage time, the funnel counts are
+    filled, and debug_overlay draws markers over the frame."""
+    _, frames = seq
+    vo = _port("off")
+    stats = None
+    for il, ir in frames[:5]:
+        _, stats = vo.track_stereo_images(il, ir, timed=True)
+    sm = stats["stage_ms"]
+    for k in ("time_track", "time_stereo", "time_pose", "time_new"):
+        assert sm[k] > 0.0, (k, sm)
+    assert stats["n_initial"] > 50 and stats["n_tracked"] > 50 and stats["avg_age"] > 1.0
+    assert stats["n_ok_parallax"] >= 0
+    rgb = vo.debug_overlay(frames[4][0])
+    assert rgb.shape == (480, 640, 3) and rgb.dtype == np.uint8
+    gray3 = np.stack([np.clip(frames[4][0], 0, 255).astype(np.uint8)] * 3, axis=-1)
+    assert (rgb != gray3).any()
+
+
+def test_timer_matches_jax_and_takes_a_state_to_wait_on(jax_run):
+    """utils/timer: StageTimer accumulates as the reference's does; toc and
+    StageTimer.stage wait on a whole state tree (dataclasses, tuples)."""
+    from visual_odometry_ros_tpu.utils import timer as JT
+    from visual_odometry_ros_tpu_torch.utils import timer as TT
+
+    jt, tt = JT.StageTimer(), TT.StageTimer()
+    for name, ms in [("track", 3.0), ("pose", 5.5), ("track", 4.0)]:
+        jt.record(name, ms)
+        tt.record(name, ms)
+    assert tt.summary() == jt.summary() == {"track": 3.5, "pose": 5.5}
+    assert tt.last_ms == jt.last_ms and dict(tt.counts) == dict(jt.counts)
+    assert tt.mean_ms("absent") == jt.mean_ms("absent") == 0.0
+    state = state_from_numpy(jax_run[4]["post"])
+    assert TT.block_until_ready(state) is state
+    with tt.stage("wait", block_on=state):
+        pass
+    assert tt.counts["wait"] == 1 and tt.last_ms["wait"] >= 0.0
+    TT.tic()
+    assert TT.toc(block_on=(state, [state.T_wc])) >= 0.0
+    assert TT.StopWatch("s").stop_ms() >= 0.0
+
+
+def _resume_frame(jax_run):
+    """A frame i such that frames i + 1 and i + 2 are not keyframes."""
+    return next(i for i in range(2, len(jax_run) - 2) if not jax_run[i + 1]["kf"] and not jax_run[i + 2]["kf"])
+
+
+def test_checkpoint_crosses_both_ways(tmp_path, seq, jax_run, jvo):
+    """JAX save_vo -> port load_vo -> the port's next frame equals JAX's
+    (1e-5, as a steady step from JAX state); then port save_vo -> JAX
+    load_vo -> JAX's next frame equals the port's."""
+    _, frames = seq
+    i = _resume_frame(jax_run)
+    src = JVO(small_cfg(JConfig))
+    src.state = jax_run[i]["post"]
+    src.trajectory = [r["T_wc"] for r in jax_run[: i + 1]]
+    src.kf_trajectory = [(k, r["T_wc"]) for k, r in enumerate(jax_run[: i + 1]) if r["kf"]]
+    JCK.save_vo(str(tmp_path / "jax"), src)
+
+    vo = _port("off")
+    TCK.load_vo(str(tmp_path / "jax"), vo)
+    assert len(vo.trajectory) == i + 1 and len(vo.kf_trajectory) == len(src.kf_trajectory)
+    T_port, _ = vo.track_stereo_images(*frames[i + 1])
+    np.testing.assert_allclose(T_port, jax_run[i + 1]["T_wc"], atol=1e-5)
+
+    TCK.save_vo(str(tmp_path / "port"), vo)
+    JCK.load_vo(str(tmp_path / "port"), jvo)
+    assert len(jvo.trajectory) == i + 2
+    T_jax, _ = jvo.track_stereo_images(*frames[i + 2])
+    T_port, _ = vo.track_stereo_images(*frames[i + 2])
+    np.testing.assert_allclose(T_port, T_jax, atol=1e-5)
+
+
+def test_checkpoint_state_round_trip_and_shape_check(tmp_path, jax_run):
+    """Port save_state -> load_state is bit-exact, with the reference's leaf
+    keys; a template of another capacity is refused."""
+    st = state_from_numpy(jax_run[4]["post"])
+    TCK.save_state(str(tmp_path / "s.npz"), st)
+    with np.load(str(tmp_path / "s.npz")) as data:
+        keys = set(data.files)
+    assert {"T_wc", "tracks/pts", "arena/desc", "ring/head", "pyr_prev/0/1", "fail_count"} <= keys
+    back = TCK.load_state(str(tmp_path / "s.npz"), st)
+    for (ka, a), (kb, b) in zip(TCK._leaves(st), TCK._leaves(back)):
+        assert ka == kb and a.dtype == b.dtype and torch.equal(a, b), ka
+    cfg = small_cfg(tio.VOConfig, "off")
+    cfg.extractor.n_features = 128
+    small = TVO(cfg)
+    with pytest.raises(ValueError):
+        TCK.load_state(str(tmp_path / "s.npz"), small.init_state(small._build_pyr(torch.zeros(480, 640))))
 
 
 def test_port_and_chip_smoke_import_no_jax():
     code = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"
         "import visual_odometry_ros_tpu_torch.models.stereo_vo, visual_odometry_ros_tpu_torch.ops.klt_kernels\n"
+        "import visual_odometry_ros_tpu_torch.camera, visual_odometry_ros_tpu_torch.ops.pnp\n"
+        "import visual_odometry_ros_tpu_torch.io.checkpoint, visual_odometry_ros_tpu_torch.utils.timer\n"
         "from visual_odometry_ros_tpu_torch import io\n"
         "import chip_smoke\n"
         "cfg = chip_smoke.bench_config(); io.forward_trajectory(3)\n"

@@ -1,7 +1,7 @@
 """Shared numpy-only modules of the JAX package, reached without importing jax.
 
-`visual_odometry_ros_tpu/config.py`, `io/synthetic.py` and `io/trajectory.py`
-import only numpy at module level, but importing them the normal way runs
+`visual_odometry_ros_tpu/config.py`, `io/synthetic.py`, `io/trajectory.py` and
+`io/visualize.py` import only numpy at module level, but importing them the normal way runs
 `visual_odometry_ros_tpu/__init__.py`, which imports jax — and a machine
 running this port has no jax. So each file is loaded by path under a private
 module name; the JAX package's `__init__` never runs.
@@ -40,12 +40,15 @@ def _load(name: str, rel: str):
 config = _load("config", "config.py")
 synthetic = _load("synthetic", "io/synthetic.py")
 trajectory = _load("trajectory", "io/trajectory.py")
+visualize = _load("visualize", "io/visualize.py")
 
 VOConfig = config.VOConfig
 CorridorSequence = synthetic.CorridorSequence
 PlaneSequence = synthetic.PlaneSequence
 ate_rmse = trajectory.ate_rmse
 rpe = trajectory.rpe
+DistortedStereoSequence = synthetic.DistortedStereoSequence
+draw_tracking = visualize.draw_tracking
 
 
 def forward_trajectory(n_frames: int, step=0.25, yaw_rate=0.002, lateral=0.0) -> np.ndarray:
@@ -68,6 +71,8 @@ __all__ = [
     "VOConfig",
     "CorridorSequence",
     "PlaneSequence",
+    "DistortedStereoSequence",
+    "draw_tracking",
     "ate_rmse",
     "rpe",
     "forward_trajectory",

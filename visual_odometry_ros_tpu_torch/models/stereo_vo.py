@@ -1,15 +1,14 @@
-"""Stereo visual-odometry pipeline: first frame, steady step, keyframe + BA.
+"""Stereo visual-odometry pipeline: first frame, steady step, recovery,
+keyframe + BA, and the per-frame, timed and batch entry points.
 
 Counterpart of `visual_odometry_ros_tpu/models/stereo_vo.py`. The steady
 step runs the same four stages (track, stereo, pose, update with
 replenishment) over fixed-capacity state (tracks N, arena M, ring K). Each
 of the reference's `lax.cond` gates is a Python branch on one synchronised
-scalar: the global-shift alignment, replenishment, the keyframe step (in the
-caller), and tracking-loss recovery.
-
-Not in this slice: rectification (`flagDoUndistortion=True`), tracking-loss
-recovery, the batch (`lax.scan`) path and the per-stage timed path; the
-first two raise NotImplementedError naming the ROADMAP item that adds them.
+scalar: the global-shift alignment, replenishment, tracking-loss recovery
+and its tiers, and the keyframe step. The reference's `lax.scan` over a
+batch is a frame loop whose per-frame outputs stay on the device until one
+readback per batch.
 """
 
 from __future__ import annotations
@@ -22,17 +21,22 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import camera as cam_mod
 from ..mapping import arena as A
 from ..ops import ba as BA
 from ..ops import depth_filter as DF
 from ..ops import features as F
 from ..ops import klt as KLT
+from ..ops import pnp as PNP
 from ..ops import pose_gn as PG
 from ..ops import stereo_disparity as SD
 from ..ops import triangulate as TRI
 from ..ops.pyramid import build_pyramid_with_gradients, global_shift_zncc
 from ..utils import geometry as geo
-from ..utils import interp, robust
+from ..utils import interp, robust, timer
+
+# Minimal-set hypotheses per recovery PnP (the reference's n_hypotheses).
+_RECOVERY_HYPOTHESES = 128
 
 
 @dataclass
@@ -83,21 +87,28 @@ class StereoVO:
     work on `device`."""
 
     def __init__(self, cfg, device="cpu"):
-        if cfg.flagDoUndistortion:
-            raise NotImplementedError(
-                "flagDoUndistortion=True needs camera.py rectification "
-                "(ROADMAP.md A.12, not yet ported)"
-            )
         self.cfg = cfg
         self.device = torch.device(device)
-        c = cfg.cam
-        # Intrinsics rounded through float32, as the reference camera stores them.
-        self.fx = float(np.float32(c.fx))
-        self.fy = float(np.float32(c.fy))
-        self.cx = float(np.float32(c.cx))
-        self.cy = float(np.float32(c.cy))
-        T_lr = torch.as_tensor(np.asarray(cfg.T_lr, np.float32))
-        self.T_rl = geo.se3_inverse(T_lr).to(self.device)
+        c, cr = cfg.cam, cfg.cam_right
+        T_lr = torch.as_tensor(np.asarray(cfg.T_lr, np.float32)).to(self.device)
+        left = cam_mod.make_camera(c.fx, c.fy, c.cx, c.cy, c.dist, c.width, c.height, self.device)
+        if cfg.flagDoUndistortion:
+            # Every frame is rectified; the pipeline sees the rectified
+            # camera and the rectified extrinsics.
+            right = cam_mod.make_camera(cr.fx, cr.fy, cr.cx, cr.cy, cr.dist, cr.width, cr.height,
+                                        self.device)
+            self.stereo = cam_mod.make_stereo_camera(left, right, T_lr)
+            self.rect = self.stereo.rect
+            self.T_rl = geo.se3_inverse(self.stereo.T_lr_rect)
+        else:
+            self.stereo = None
+            self.rect = left
+            self.T_rl = geo.se3_inverse(T_lr)
+        # Intrinsics as float32 values, as the reference camera stores them.
+        self.fx = float(self.rect.fx)
+        self.fy = float(self.rect.fy)
+        self.cx = float(self.rect.cx)
+        self.cy = float(self.rect.cy)
         self.baseline = float(torch.linalg.norm(T_lr[:3, 3]))
 
         self.N = cfg.extractor.n_features
@@ -499,25 +510,143 @@ class StereoVO:
         )
         return new_state, stats
 
-    def _steady_step(self, state: StereoVOState, img_l, img_r):
-        """One steady-state frame: track, stereo, pose, update."""
-        pyr_l, pyr_r, pts1, ok_track, has_3d, prior_depth, scale_prior = self._track_stage(
-            state, img_l, img_r
+    def _recovery_generator(self, frame_id: int, tier: int) -> torch.Generator:
+        """Generator of one recovery tier's RANSAC draws, seeded from
+        (0x5EC0, frame_id, tier) as the reference folds its key: runs
+        repeat, and each tier's draws do not depend on the other's."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((0x5EC0 << 40) | (frame_id << 8) | tier)
+        return gen
+
+    def _rebootstrap(self, s: StereoVOState, pyr_l, pyr_r) -> StereoVOState:
+        """Fresh tracks and landmarks at s.T_wc, a fresh keyframe window (a
+        new BA gauge) and dT = I. Landmarks of the old map stay in the arena
+        but are no longer tracked."""
+        d = self.device
+        arena = s.arena.replace(tracked=torch.zeros_like(s.arena.tracked))
+        tracks, arena, pts_r_new, pts_r_valid, _ = self._replenish(
+            pyr_l, pyr_r, A.make_tracks(self.N, d), arena, s.T_wc, allow=True
         )
-        pts_r1, ok_stereo, _ = self._stereo_stage(pyr_l, pyr_r, pts1, ok_track, has_3d, prior_depth)
-        T10, dT_new, T_wc_new, survived, pose_ok, mean_err = self._pose_stage(
-            state, pts1, pts_r1, ok_track, ok_stereo, has_3d
+        ring = A.ring_push(
+            A.make_ring(self.K, self.N, d), geo.se3_inverse(s.T_wc), s.frame_id, tracks.pts,
+            pts_r_new, tracks.lm_idx, tracks.valid, pts_r_valid,
+        )
+        return s.replace(
+            dT=self._eye4(), tracks=tracks, tracks_r=pts_r_new, tracks_r_valid=pts_r_valid,
+            arena=arena, ring=ring, fail_count=torch.zeros_like(s.fail_count),
+        )
+
+    def _recover(self, state: StereoVOState, pyr_l, pyr_r, pts1, ok_track, has_3d, draw=None):
+        """Tracking-loss recovery after `recover_after` consecutive failed poses.
+
+        Tier 1 (mode 1): PnP relocalization on the surviving tracked
+        landmarks; keeps their inlier tracks. Tier 2 (mode 3): fresh
+        detections matched by descriptor against the arena's birth
+        descriptors, PnP on those matches, then a re-bootstrap at the
+        corrected pose. Tier 3 (mode 2): re-bootstrap at the dead-reckoned
+        pose. Every tier resets dT to I: a stale velocity prior locks tracks
+        on repeated texture onto the alias consistent with it.
+
+        Tier 2 runs only when tier 1 fails (the reference computes it always
+        and discards it then). draw(tier, valid) -> [128, 6] replaces the
+        RANSAC draws (tests inject the reference's). Returns (state, mode)."""
+        m = self.cfg.motion
+        if draw is None:
+            fid = int(state.frame_id)
+
+            def draw(tier, valid):
+                return PNP.sample_minimal_sets(valid, _RECOVERY_HYPOTHESES,
+                                               self._recovery_generator(fid, tier))
+
+        def mode_t(mode):
+            return torch.tensor(mode, dtype=torch.int32, device=self.device)
+
+        arena = state.arena
+        lm = state.tracks.lm_idx.to(torch.int64)
+        cand = ok_track & has_3d & arena.alive[lm]
+        T_cw_prior = geo.se3_inverse(state.T_wc)
+        max_jump = 2.0 * m.recover_after * m.max_step_abs
+        thr = self.pose_params.reproj_thresh
+        intr = (self.fx, self.fy, self.cx, self.cy)
+
+        pnp = PNP.pnp_ransac(
+            arena.Xw[lm], pts1, cand, *intr, thresh_px=1.5 * thr, n_hypotheses=_RECOVERY_HYPOTHESES,
+            min_inlier_ratio=0.3, T_init=T_cw_prior, idx=draw(1, cand),
+        )
+        T_wc_pnp = geo.se3_inverse(pnp.T_cw)
+        jump = torch.linalg.norm(T_wc_pnp[:3, 3] - state.T_wc[:3, 3])
+        if bool(pnp.ok & (pnp.n_inliers >= 15) & (jump <= max_jump)):
+            valid_new = (cand & pnp.inliers) | (state.tracks.valid & ~has_3d)
+            return state.replace(
+                T_wc=T_wc_pnp, dT=self._eye4(), tracks=state.tracks.replace(valid=valid_new),
+                fail_count=torch.zeros_like(state.fail_count),
+            ), mode_t(1)
+
+        cfg = self.cfg.extractor
+        img0 = pyr_l[0][0]
+        det_pts, det_ok = F.detect_features(
+            img0, torch.zeros((self.N, 2), dtype=torch.float32, device=self.device),
+            torch.zeros((self.N,), dtype=torch.bool, device=self.device), gh=cfg.n_bins_v,
+            gw=cfg.n_bins_u, n_max=self.N // 2, fast_thresh=cfg.thres_fastscore,
+            score_min=cfg.score_min,
+        )
+        dw, dv = F.orb_descriptors(img0, det_pts)
+        lm_ok = arena.alive & arena.triangulated & arena.desc_valid
+        midx, m_ok = F.match_descriptors(F.desc_to_u8(dw), det_ok & dv, arena.desc, lm_ok, max_dist=60)
+        pnp_d = PNP.pnp_ransac(
+            arena.Xw[torch.clamp(midx, min=0)], det_pts, m_ok, *intr, thresh_px=2.0 * thr,
+            n_hypotheses=_RECOVERY_HYPOTHESES, min_inlier_ratio=0.3, T_init=T_cw_prior,
+            idx=draw(2, m_ok),
+        )
+        T_wc_d = geo.se3_inverse(pnp_d.T_cw)
+        jump_d = torch.linalg.norm(T_wc_d[:3, 3] - state.T_wc[:3, 3])
+        if bool(pnp_d.ok & (pnp_d.n_inliers >= 15) & (jump_d <= max_jump)):
+            return self._rebootstrap(state.replace(T_wc=T_wc_d), pyr_l, pyr_r), mode_t(3)
+        return self._rebootstrap(state, pyr_l, pyr_r), mode_t(2)
+
+    def _steady_step(self, state: StereoVOState, img_l, img_r, draw=None, stage_ms=None):
+        """One steady-state frame: track, stereo, pose, update, and recovery
+        once the pose has failed `recover_after` frames in a row.
+
+        stage_ms: a dict to fill with per-stage wall times (time_track,
+        time_stereo, time_pose, time_new); each stage then ends in a device
+        synchronise. draw: see `_recover`."""
+        watch = timer.StopWatch()
+
+        def lap(name, out):
+            if stage_ms is not None:
+                timer.block_until_ready(out)
+                stage_ms[name] = watch.lap_ms()
+                watch.start()
+            return out
+
+        if stage_ms is not None:
+            timer.block_until_ready((state, img_l, img_r))
+            watch.start()
+        pyr_l, pyr_r, pts1, ok_track, has_3d, prior_depth, scale_prior = lap(
+            "time_track", self._track_stage(state, img_l, img_r)
+        )
+        pts_r1, ok_stereo, _ = lap(
+            "time_stereo", self._stereo_stage(pyr_l, pyr_r, pts1, ok_track, has_3d, prior_depth)
+        )
+        T10, dT_new, T_wc_new, survived, pose_ok, mean_err = lap(
+            "time_pose", self._pose_stage(state, pts1, pts_r1, ok_track, ok_stereo, has_3d)
         )
         new_state, stats = self._update_stage(
             state, pyr_l, pyr_r, pts1, pts_r1, ok_track, ok_stereo, scale_prior,
             T10, dT_new, T_wc_new, survived, pose_ok, mean_err,
         )
         if bool(new_state.fail_count >= self.cfg.motion.recover_after):
-            raise NotImplementedError(
-                f"tracking lost for {self.cfg.motion.recover_after} frames: recovery "
-                "(PnP relocalization / re-bootstrap) is ROADMAP.md A.10, not yet ported"
-            )
-        return new_state, stats
+            new_state, mode = self._recover(new_state, pyr_l, pyr_r, pts1, ok_track, has_3d, draw)
+            stats = stats._replace(recovered=mode)
+        return lap("time_new", (new_state, stats))
+
+    def _steady_step_timed(self, state: StereoVOState, img_l, img_r):
+        """The steady step with each stage synchronised and host-timed.
+        Returns (state, stats, stage_ms)."""
+        stage_ms = {}
+        state, stats = self._steady_step(state, img_l, img_r, stage_ms=stage_ms)
+        return state, stats, stage_ms
 
     def _retriangulate_tracked(self, state: StereoVOState):
         """Keyframe-time depth refresh: two-view re-triangulation of tracked
@@ -612,33 +741,26 @@ class StereoVO:
     # entry point
     # ------------------------------------------------------------------
 
-    def track_stereo_images(self, img_l, img_r, timestamp: float = 0.0):
-        """Process one rectified stereo pair ([H, W] arrays or tensors).
-        Returns (T_wc [4, 4] numpy, stats dict)."""
-        il = torch.as_tensor(img_l, dtype=torch.float32).to(self.device)
-        ir = torch.as_tensor(img_r, dtype=torch.float32).to(self.device)
-        if self.state is None:
-            self.state = self._first_frame(il, ir)
-            eye = np.eye(4, dtype=np.float32)
-            self.trajectory.append(eye)
-            self.kf_trajectory.append((0, eye))
-            stats = {"frame": 0, "keyframe": True, "n_tracked": 0}
-            self.stats_log.append(stats)
-            return eye, stats
+    def _rectify(self, il, ir):
+        if self.stereo is None:
+            return il, ir
+        return cam_mod.rectify_stereo_images(self.stereo, il, ir)
 
-        self.state, fstats = self._steady_step(self.state, il, ir)
-        need_kf = bool(fstats.need_keyframe)
-        ba_err = None
-        ba_rejected = False
-        if need_kf:
-            self.state, ba_err_t, ba_acc = self._keyframe_step(self.state)
-            ba_err = float(ba_err_t)
-            ba_rejected = not bool(ba_acc)
+    def _bootstrap(self, il, ir):
+        """Frame 0: seed the state; the pose is the identity."""
+        self.state = self._first_frame(il, ir)
+        eye = np.eye(4, dtype=np.float32)
+        self.trajectory.append(eye)
+        self.kf_trajectory.append((0, eye))
+        stats = {"frame": 0, "keyframe": True, "n_tracked": 0}
+        self.stats_log.append(stats)
+        return eye, stats
 
-        host = torch.stack([v.to(torch.float64) for v in fstats]).cpu().tolist()
-        f = dict(zip(FrameStats._fields, host))
-        T_wc = self.state.T_wc.cpu().numpy()
+    def _record(self, T_wc: np.ndarray, f: dict, ba_err, ba_rejected: bool) -> dict:
+        """Append one tracked frame's pose and stats (host values) to the logs."""
+        need_kf = bool(f["need_keyframe"])
         stats = {
+            # Trajectory index of this frame (state.frame_id counts frames seen).
             "frame": len(self.trajectory),
             "keyframe": need_kf,
             "n_initial": int(f["n_initial"]),
@@ -647,20 +769,124 @@ class StereoVO:
             "n_new": int(f["n_new"]),
             "n_ok_parallax": int(f["n_ok_parallax"]),
             "pose_ok": bool(f["pose_ok"]),
-            "mean_reproj_err": f["mean_reproj_err"],
-            "overlap_ratio": f["overlap_ratio"],
-            "avg_parallax": f["avg_parallax"],
-            "avg_age": f["avg_age"],
+            "mean_reproj_err": float(f["mean_reproj_err"]),
+            "overlap_ratio": float(f["overlap_ratio"]),
+            "avg_parallax": float(f["avg_parallax"]),
+            "avg_age": float(f["avg_age"]),
             "fail_count": int(f["fail_count"]),
             "recovered": int(f["recovered"]),
             "ba_err": ba_err,
+            # A BA-rejected keyframe stays observable (a silently frozen BA
+            # shows up here).
             "ba_rejected": ba_rejected,
         }
         self.trajectory.append(T_wc)
         if need_kf:
             self.kf_trajectory.append((stats["frame"], T_wc))
         self.stats_log.append(stats)
+        return stats
+
+    def track_stereo_images(self, img_l, img_r, timestamp: float = 0.0, timed: bool = False):
+        """Process one stereo pair ([H, W] arrays or tensors; raw when
+        `flagDoUndistortion`, else rectified). Returns (T_wc [4, 4] numpy,
+        stats dict).
+
+        timed=True synchronises and host-times every stage and adds
+        stats["stage_ms"] (time_track, time_stereo, time_pose, time_new, and
+        time_ba on keyframes)."""
+        il = torch.as_tensor(img_l, dtype=torch.float32).to(self.device)
+        ir = torch.as_tensor(img_r, dtype=torch.float32).to(self.device)
+        il, ir = self._rectify(il, ir)
+        if self.state is None:
+            return self._bootstrap(il, ir)
+
+        if timed:
+            self.state, fstats, stage_ms = self._steady_step_timed(self.state, il, ir)
+        else:
+            self.state, fstats = self._steady_step(self.state, il, ir)
+        ba_err = None
+        ba_rejected = False
+        if bool(fstats.need_keyframe):
+            watch = timer.StopWatch()
+            self.state, ba_err_t, ba_acc = self._keyframe_step(self.state)
+            ba_err = float(ba_err_t)  # waits for the device: time_ba includes device time
+            ba_rejected = not bool(ba_acc)
+            if timed:
+                stage_ms["time_ba"] = watch.lap_ms()
+
+        host = torch.stack([v.to(torch.float64) for v in fstats]).cpu().tolist()
+        T_wc = self.state.T_wc.cpu().numpy()
+        stats = self._record(T_wc, dict(zip(FrameStats._fields, host)), ba_err, ba_rejected)
+        if timed:
+            stats["stage_ms"] = stage_ms
         return T_wc, stats
+
+    def track_stereo_batch(self, imgs_l, imgs_r):
+        """Process B stereo pairs ([B, H, W], camera-native dtype such as
+        uint8) in one call: the serving path. Returns the B stats dicts.
+
+        The batch crosses to the device in one copy and is converted to
+        float32 once (then rectified frame by frame under
+        `flagDoUndistortion`). Poses, frame stats and BA results stay on the
+        device until one readback per batch. The first call bootstraps
+        frame 0 from the batch head."""
+        il = torch.as_tensor(np.asarray(imgs_l)).to(self.device).to(torch.float32)
+        ir = torch.as_tensor(np.asarray(imgs_r)).to(self.device).to(torch.float32)
+        if self.stereo is not None:
+            pairs = [self._rectify(a, b) for a, b in zip(il, ir)]
+            il = torch.stack([a for a, _ in pairs])
+            ir = torch.stack([b for _, b in pairs])
+        start = 0
+        if self.state is None:
+            self._bootstrap(il[0], ir[0])
+            start = 1
+            if il.shape[0] == 1:
+                return [self.stats_log[-1]]
+
+        no_ba = torch.tensor([-1.0, 1.0], dtype=torch.float64, device=self.device)
+        rows = []
+        for i in range(start, il.shape[0]):
+            self.state, fstats = self._steady_step(self.state, il[i], ir[i])
+            ba = no_ba
+            if bool(fstats.need_keyframe):
+                self.state, ba_err, ba_acc = self._keyframe_step(self.state)
+                ba = torch.stack([ba_err.to(torch.float64), ba_acc.to(torch.float64)])
+            rows.append(torch.cat([
+                self.state.T_wc.reshape(16).to(torch.float64),
+                torch.stack([v.to(torch.float64) for v in fstats]),
+                ba,
+            ]))
+        host = torch.stack(rows).cpu().numpy()  # the batch's one readback
+        out = []
+        n_f = len(FrameStats._fields)
+        for row in host:
+            f = dict(zip(FrameStats._fields, row[16 : 16 + n_f]))
+            ba_err, ba_acc = row[16 + n_f], row[17 + n_f]
+            need_kf = bool(f["need_keyframe"])
+            out.append(self._record(
+                row[:16].reshape(4, 4).astype(np.float32), f,
+                float(ba_err) if need_kf else None, need_kf and not bool(ba_acc),
+            ))
+        return out
+
+    def debug_overlay(self, img_l: np.ndarray) -> np.ndarray:
+        """Debug image of the current frame: tracked features green, new
+        features blue, landmark reprojections red. Returns RGB uint8."""
+        from ..io import draw_tracking
+
+        st = self.state
+        pts = st.tracks.pts.cpu().numpy()
+        valid = st.tracks.valid.cpu().numpy()
+        lm_idx = st.tracks.lm_idx.cpu().numpy()
+        new_mask = st.arena.age.cpu().numpy()[lm_idx] <= 1
+        T_cw = geo.se3_inverse(st.T_wc).cpu().numpy()
+        Xw = st.arena.Xw.cpu().numpy()[lm_idx]
+        Xc = Xw @ T_cw[:3, :3].T + T_cw[:3, 3]
+        tri = st.arena.triangulated.cpu().numpy()[lm_idx] & valid & (Xc[:, 2] > 0.1)
+        uv = Xc[:, :2] / np.maximum(Xc[:, 2:3], 1e-6) * np.array([self.fx, self.fy]) + np.array(
+            [self.cx, self.cy]
+        )
+        return draw_tracking(img_l, pts, valid, new_mask, uv[tri])
 
 
 # ----------------------------------------------------------------------

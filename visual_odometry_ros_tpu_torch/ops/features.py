@@ -1,7 +1,7 @@
-"""FAST detection, Harris scoring, bucketed selection, rotated-BRIEF descriptors.
+"""FAST detection, Harris scoring, bucketed selection, rotated-BRIEF
+descriptors, Hamming matching.
 
-Counterpart of `visual_odometry_ros_tpu/ops/features.py` (the descriptor
-matcher comes with tracking-loss recovery). Selection breaks score ties
+Counterpart of `visual_odometry_ros_tpu/ops/features.py`. Selection breaks score ties
 by the lower bin index — the order `jax.lax.top_k` documents — via a stable
 sort, so the two packages select and order features alike.
 """
@@ -182,3 +182,48 @@ def desc_to_u8(packed: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(4, dtype=torch.int64, device=packed.device) * 8
     b = (packed[..., None] >> shifts) & 0xFF
     return b.reshape(packed.shape[0], 32).to(torch.int32)
+
+
+# Rows of `db` per step of the distance matrix: bounds the [N, chunk, 32]
+# uint8 intermediates (16 MB each at N = 512) whatever the arena size M.
+_HAMMING_CHUNK = 1024
+
+
+def _popcount_u8(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of every uint8 element (SWAR within the byte)."""
+    x = x - ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    return (x + (x >> 4)) & 0x0F
+
+
+def hamming_distance_matrix(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """[N, 32] x [M, 32] descriptor bytes (any integer dtype holding 0..255,
+    as `desc_to_u8` gives and the arena stores) -> [N, M] int32 Hamming
+    distances. Packed words go through `desc_to_u8` first: the distance does
+    not depend on the packing."""
+    a = da.to(torch.uint8)[:, None, :]
+    b = db.to(torch.uint8)
+    out = [
+        torch.sum(_popcount_u8(a ^ b[j : j + _HAMMING_CHUNK][None]), dim=-1, dtype=torch.int32)
+        for j in range(0, b.shape[0], _HAMMING_CHUNK)
+    ]
+    return torch.cat(out, dim=1)
+
+
+def match_descriptors(da, va, db, vb, max_dist: int = 64, ratio: float = 0.9):
+    """Mutual nearest-neighbour Hamming matching with the Lowe ratio test.
+    Ties resolve to the lowest index, as `argmin` does in both packages.
+
+    Returns (idx_b [N] int64 — the match in b for each a, or -1; mask [N])."""
+    big = 10_000
+    d = hamming_distance_matrix(da, db)
+    d = torch.where(va[:, None] & vb[None, :], d, big)
+    # argmin, not torch.min: the index torch.min gives for a repeated minimum
+    # is not specified, argmin's is the first.
+    best = torch.argmin(d, dim=1)
+    best_d = torch.gather(d, 1, best[:, None])[:, 0]
+    is_best = torch.arange(d.shape[1], device=d.device)[None, :] == best[:, None]
+    second_d = torch.min(torch.where(is_best, big, d), dim=1).values
+    mutual = torch.argmin(d, dim=0)[best] == torch.arange(d.shape[0], device=d.device)
+    ok = (best_d <= max_dist) & (best_d.to(torch.float32) < ratio * second_d.to(torch.float32)) & mutual & va
+    return torch.where(ok, best, -1), ok

@@ -1,7 +1,7 @@
-"""Stereo pose-only Gauss-Newton with Huber weights and a two-pass gate.
+"""Pose-only Gauss-Newton with Huber weights: mono, stereo, stereo two-pass gate.
 
-Counterpart of the stereo half of `visual_odometry_ros_tpu/ops/pose_gn.py`
-(mono variants come with the mono pipeline). The reference's
+Counterpart of `visual_odometry_ros_tpu/ops/pose_gn.py` (the mono two-pass
+gate comes with the mono pipeline). The reference's
 `lax.while_loop` becomes a host loop that checks its stop flag once every
 `_CHECK_EVERY` iterations: iterations after the stop are masked no-ops, so
 the result equals the while loop's while the host syncs a few times per
@@ -111,6 +111,24 @@ def _pose_gn_core(residual_fn, T_init, valid, params: PoseGNParams, n_rows: int)
         & torch.isfinite(mean_err)
     )
     return PoseGNResult(T, inliers, mean_err, ok, it)
+
+
+def pose_only_gn_mono(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
+                      params: PoseGNParams = PoseGNParams()) -> PoseGNResult:
+    """Refine T_10 so that pi(T_10 X0) matches pts1 (2 residual rows per
+    point). X0 [N, 3] in frame-0 camera coordinates, pts1 [N, 2] pixels."""
+
+    def residual_fn(T):
+        Xc = geo.transform_points(T, X0)
+        z = Xc[..., 2]
+        iz = 1.0 / torch.where(torch.abs(z) < 1e-6, 1e-6, z)
+        r = torch.stack([Xc[..., 0] * iz * fx + cx, Xc[..., 1] * iz * fy + cy], dim=-1) - pts1
+        J = torch.einsum("nij,njk->nik", _project_jacobian(Xc, fx, fy), _se3_point_jacobian(Xc))
+        # Behind-camera points contribute nothing.
+        front = (z > 0.01)[:, None]
+        return torch.where(front, r, 0.0), torch.where(front[:, :, None], J, 0.0)
+
+    return _pose_gn_core(residual_fn, T_10_init, valid, params, n_rows=2)
 
 
 def pose_only_gn_stereo(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl, T_10_init,
