@@ -189,6 +189,117 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(launches, reps=100, warmup=5):
+    """Device milliseconds of one pass over `launches` (C launcher calls on
+    preallocated outputs): `reps` passes back to back between two CUDA
+    events, queued behind a spin kernel so that the host's enqueue time
+    stays off the device's clock. Inputs stay warm in L2, as on the main
+    path."""
+    import torch
+
+    for _ in range(warmup):
+        for fn, argv in launches:
+            fn(*argv)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # ~10 ms of spinning covers the enqueue
+    a.record()
+    for _ in range(reps):
+        for fn, argv in launches:
+            fn(*argv)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def host_us(fn, reps=50):
+    """Host microseconds per call of fn(): perf_counter around `reps` calls,
+    no synchronise inside (the enqueue cost the Python caller pays)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def recorded_launches(fn):
+    """Run fn() once and return the C launcher calls it made, as
+    [(name, fn, argv, keep)]; `keep` holds the tensors behind the pointers."""
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    calls = []
+    orig = KK._launch
+
+    def rec(name, c_fn, argv, keep=()):
+        calls.append((name, c_fn, argv, keep))
+        return orig(name, c_fn, argv, keep)
+
+    KK._launch = rec
+    try:
+        fn()
+    finally:
+        KK._launch = orig
+    return calls
+
+
+def klt_call_sites(pairs, dev):
+    """The main path's KLT call sites at the bench configuration, on frames
+    10 -> 11 of the 0.25 m/frame corridor (N = 1024; 512 for replenish):
+    {name: thunk}. Parameters come from StereoVO itself."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO
+    from visual_odometry_ros_tpu_torch.ops import klt as KLT
+
+    vo = StereoVO(bench_config(), device=dev)
+    up = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    img_a, img_b, img_r = up(pairs[10][0]), up(pairs[11][0]), up(pairs[11][1])
+    pyr_a, pyr_b, pyr_r = vo._build_pyr(img_a), vo._build_pyr(img_b), vo._build_pyr(img_r)
+    H, W = img_a.shape
+    gy, gx = np.meshgrid(np.linspace(12, H - 13, 32), np.linspace(12, W - 13, 32), indexing="ij")
+    p = up(np.stack([gx.ravel(), gy.ravel()], -1))
+    rng = np.random.default_rng(0)
+    seed = (p + up(rng.uniform(-2, 2, p.shape))).contiguous()
+    sc = up(rng.uniform(0.9, 1.12, len(p)))
+    valid = torch.ones(len(p), dtype=torch.bool, device=dev)
+    disp = torch.tensor([8.0, 0.0], device=dev)
+    kp, kpe, cfg_t = vo.klt_params, vo.klt_params_epi, vo.cfg.tracker
+    p1, ok = KLT.track_with_prior_pyr(pyr_a, pyr_b, p, seed, valid, kp)
+    half = p[::2].contiguous()
+    return {
+        "track": lambda: KLT.track_with_prior_pyr(pyr_a, pyr_b, p, seed, valid, kp),
+        "scale": lambda: KLT.track_with_scale(img_a, img_a, img_a, img_b, p, p1, sc, ok,
+                                              iters=cfg_t.scale_iter, use_kernel=True),
+        "stereo": lambda: KLT.track_with_prior_pyr(pyr_b, pyr_r, p1, p1 - disp, ok, kpe,
+                                                   track_levels=1, epi1d=True),
+        "replenish": lambda: KLT.track_bidirectional_pyr(pyr_b, pyr_r, half, half - disp, valid[: len(half)], kpe,
+                                                         fb_scale=5.0, back_levels=1, epi1d=True),
+    }
+
+
+def call_site_times(pairs, dev, card):
+    """Device ms and launches per call of each main-path KLT call site (the
+    C launchers alone, replayed back to back), and the host us per call of
+    the call site and of each kernel's wrapper."""
+    sites = klt_call_sites(pairs, dev)
+    out = {}
+    for name, fn in sites.items():
+        calls = recorded_launches(fn)
+        out[name] = {
+            "kernels": [c[0] for c in calls],
+            "device_ms": device_ms([(c[1], c[2]) for c in calls]),
+            "host_us": host_us(fn),
+        }
+    print(json.dumps({"klt_call_sites": out, "card": card}))
+    return out
+
+
 def compare(name, p_k, ok_k, p_r, ok_r):
     """|dp| statistics over features live in both, flag agreement; raises on
     exceeding the tolerances."""
@@ -257,14 +368,22 @@ def per_frame_path(frames, device, card):
     vo._keyframe_step = timed_kf
     n_plain = N_MAIN - N_TIMED
     KK.reset_launch_counts()
-    frame_ms = []
+    frame_ms, frame_launches = [], []
     for il, ir in pairs[:n_plain]:
+        before = dict(KK.LAUNCHES)
         sync(device)
         t = time.perf_counter()
         vo.track_stereo_images(il, ir)
         sync(device)
         frame_ms.append((time.perf_counter() - t) * 1e3)
+        frame_launches.append({k: KK.LAUNCHES[k] - before[k] for k in before})
     launches = launched("per-frame path")
+    kinds = {}
+    for s, n in zip(vo.stats_log[1:], frame_launches[1:]):
+        kind = "replenish" if s["n_new"] > 0 else "steady"
+        kinds.setdefault(kind, set()).add(json.dumps(n, sort_keys=True))
+    print(json.dumps({"klt_launches_per_frame": {k: sorted(v) for k, v in kinds.items()},
+                      "frames": [dict(n, n_new=s["n_new"]) for s, n in zip(vo.stats_log[1:], frame_launches[1:])]}))
     steady = [ms for ms, s in zip(frame_ms[3:], vo.stats_log[3:]) if not s["keyframe"]]
     print(f"time steady frame: median {statistics.median(steady):.2f} ms over {len(steady)} frames; "
           f"keyframe step: median {statistics.median(kf_ms[1:] or kf_ms):.2f} ms over "
@@ -440,7 +559,8 @@ def main() -> int:
         cases["klt_level"].append(compare(f"level{lvl}_2d", k[0], k[1], r[0], r[1]))
         if lvl == 0:
             timing["klt_level"] = (cuda_ms(lambda: KK.track_level(*args)),
-                                   cuda_ms(lambda: KK.track_level_ref(*args)))
+                                   cuda_ms(lambda: KK.track_level_ref(*args)),
+                                   host_us(lambda: KK.track_level(*args)))
     # epi1d: left -> right along the row from a constant 8 px disparity seed.
     for lvl in range(3):
         s = 2.0**lvl
@@ -463,11 +583,14 @@ def main() -> int:
         cases["klt_scale"].append(compare(f"scale_{tag}", k[0], k[2], r[0], r[2]))
         if tag == "s_corridor":
             timing["klt_scale"] = (cuda_ms(lambda: KK.track_scale(*args)),
-                                   cuda_ms(lambda: KK.track_scale_ref(*args)))
+                                   cuda_ms(lambda: KK.track_scale_ref(*args)),
+                                   host_us(lambda: KK.track_scale(*args)))
     torch.cuda.synchronize()
-    for name, (ms, plain) in timing.items():
-        print(f"time {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms (N={N_FEAT}, level 0, "
-              f"median of 20 CUDA-event timings) on {card}")
+    for name, (ms, plain, hus) in timing.items():
+        print(f"time {name}: wrapper {ms:.4f} ms, plain {plain:.4f} ms (N={N_FEAT}, level 0, "
+              f"median of 20 CUDA-event timings around the wrapper call); wrapper host "
+              f"{hus:.1f} us per call on {card}")
+    call_site_times(pairs, dev, card)
 
     # 4.-7. the paths -------------------------------------------------------
     per_frame_path(frames, dev, card)
@@ -484,7 +607,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "visual_odometry_ros_tpu_torch/csrc/klt.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(c["max_dp_px"] for c in cases[name]),
-            "ms": timing[name][0], "plain_ms": timing[name][1],
+            "ms": timing[name][0], "plain_ms": timing[name][1], "host_ms": timing[name][2] * 1e-3,
         }
         for name in ("klt_level", "klt_scale")
     ]}

@@ -300,9 +300,14 @@ def _check_common(img0, img1, p0, p1_init, valid, radius):
     return img0.device
 
 
-def _raise_on(rc: int, name: str) -> None:
+def _launch(name: str, fn, argv: tuple, keep: tuple = ()) -> None:
+    """Call the C launcher `fn(*argv)` and count the launch. `keep` holds
+    the tensors behind argv's pointers (a caller that replays argv keeps
+    them alive)."""
+    rc = fn(*argv)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+    LAUNCHES[name] += 1
 
 
 def track_level(img0, img1, p0, p1_init, valid, radius=10, iters=12, eps=0.03, min_eig=1e-4,
@@ -327,14 +332,13 @@ def track_level(img0, img1, p0, p1_init, valid, radius=10, iters=12, eps=0.03, m
         return p1, live, err, proc
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.klt_level_launch(
+        argv = (
             img0.data_ptr(), img1.data_ptr(), H, W, p0.data_ptr(), p1_init.data_ptr(),
             valid.data_ptr(), N, int(radius), int(iters), float(eps), float(min_eig),
             int(bool(epi1d)), p1.data_ptr(), err.data_ptr(), live.data_ptr(), proc.data_ptr(),
             stream,
         )
-    _raise_on(rc, "klt_level")
-    LAUNCHES["klt_level"] += 1
+        _launch("klt_level", lib.klt_level_launch, argv, (img0, img1, p0, p1_init, valid, p1, err, live, proc))
     return p1, live, err, proc
 
 
@@ -361,11 +365,11 @@ def track_scale(img0, img1, p0, p1_init, scale_change, valid, radius=11, iters=3
         return p1, err, ok
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.klt_scale_launch(
+        argv = (
             img0.data_ptr(), img1.data_ptr(), H, W, p0.data_ptr(), p1_init.data_ptr(),
             scale_change.data_ptr(), valid.data_ptr(), N, int(radius), int(iters), float(eps),
             p1.data_ptr(), err.data_ptr(), ok.data_ptr(), stream,
         )
-    _raise_on(rc, "klt_scale")
-    LAUNCHES["klt_scale"] += 1
+        _launch("klt_scale", lib.klt_scale_launch, argv,
+                (img0, img1, p0, p1_init, scale_change, valid, p1, err, ok))
     return p1, err, ok
