@@ -10,13 +10,20 @@ the final line):
   1. environment: torch / CUDA versions, the card's name and power limit;
      every world below is rendered in one process pool;
   2. build: compiles csrc/klt.cu with nvcc for sm_90a into build/kernels/;
-  3. kernels: `klt_level` (2-D and epi1d, all three pyramid level sizes) and
-     `klt_scale` (s = 1 and s != 1) on KITTI-size corridor frames with
-     N = 1024 features, each against its plain PyTorch version on the same
-     inputs, with CUDA-event timings of both;
+  3. kernels: `klt_pyr` one level at a time (2-D and epi1d, all three
+     pyramid level sizes), as the fused forward climb (N = 1024) and as the
+     bidirectional epi1d climb (N = 512), and `klt_scale` (s = 1, s in
+     [0.9, 1.12], s = 0.5 and s = 2) on KITTI-size corridor frames, each
+     against its plain PyTorch version on the same inputs; then, at the
+     main path's four KLT call sites (track climb, scale, stereo,
+     replenish), one launch per call asserted, device time per launch (C
+     launcher alone, back to back) for 1, 2 and 4 warps per feature, host
+     time per call, the plain version's time and the bound from this run's
+     work counts;
   4. per-frame path: `StereoVO(cfg, device="cuda")` at the bench.py
      configuration over 1 + 18 frames of the bench corridor at 0.25 m/frame
-     through `track_stereo_images`; times steady and keyframe steps;
+     through `track_stereo_images`; times steady and keyframe steps and
+     counts KLT launches frame by frame;
   5. per-stage times: 6 more frames of the same run with `timed=True`;
      checks kernel launches, BA keyframes and the 25-frame trajectory error;
   6. serving path: bench.py's workload -- the corridor at bench.py's
@@ -28,8 +35,9 @@ the final line):
      `flagDoUndistortion=True` on the 640x480 plane world rendered through
      radtan-distorted lenses, 1 + 8 frames at 0.22 m/frame through
      `track_stereo_batch`.
-Every path is driven with the kernel launch counts set to 0 just before it
-and read just after. The last two lines are the kernel table (launches of
+`--kernels-only` runs phases 1-3 on the two frames phase 3 reads and prints
+no result line. Every path is driven with the kernel launch counts set to 0
+just before it and read just after. The last two lines are the kernel table (launches of
 the serving path) and {"ok": true, "device": ...}. This script imports no
 JAX.
 """
@@ -92,6 +100,33 @@ DIST = (-0.28, 0.07, 1e-4, -1e-4, 0.0)
 STEP_DIST = 0.22
 N_DIST = 9
 ATE_DIST_BOUND_M = 0.05 * STEP_DIST * (N_DIST - 1)
+
+
+# Bounds (least device time for a call's work): fp32 operations per window
+# pixel of each stage of csrc/klt.cu, counted from its source (add, mul,
+# min/max, floor, compare; a fused multiply-add counts 2), times the pixels
+# this run's data needs (`counts` of the plain versions: templates built,
+# Gauss-Newton steps taken, residuals evaluated), over 67 TFLOP/s; bytes:
+# every input read once and every output written once, over 3.35 TB/s
+# (NVIDIA H100 SXM data sheet, at 700 W).
+OPS_PER_PX = {
+    "template_px": 159,  # edge cell 8, four Scharr grid points 108, three bilinear 27, mask 6, Hessian 10
+    "step_px": 29,  # point 2, edge cell 8, bilinear 9, mask 4, residual 2, two accumulations 4
+    "err_px": 28,  # point 2, edge cell 8, bilinear 9, mask 4, |residual| and sums 5
+    "bank_px": 21,  # point 4, edge cell 8, bilinear 9
+    "scale_template_px": 42,  # Scharr on the bank 24, mask 8, Hessian 10
+    "scale_step_px": 31,  # point 4, then as step_px
+    "scale_err_px": 30,  # point 4, then as err_px
+}
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(counts: dict, n_bytes: int) -> tuple:
+    """(bound_ms, bound_by) of one call from its work counts and bytes."""
+    ops = sum(OPS_PER_PX[k] * v for k, v in counts.items())
+    t_ops, t_bytes = ops / PEAK_FP32, n_bytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def bench_config():
@@ -251,16 +286,21 @@ def recorded_launches(fn):
 def klt_call_sites(pairs, dev):
     """The main path's KLT call sites at the bench configuration, on frames
     10 -> 11 of the 0.25 m/frame corridor (N = 1024; 512 for replenish):
-    {name: thunk}. Parameters come from StereoVO itself."""
+    {name: {call, wrapper, plain, bytes}}: the call as the main path makes
+    it, its kernel's wrapper alone and the plain version (taking a `counts`
+    dict) on the same inputs, and the bytes the kernel must move.
+    Parameters come from StereoVO."""
     import torch
 
     from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO
     from visual_odometry_ros_tpu_torch.ops import klt as KLT
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
 
     vo = StereoVO(bench_config(), device=dev)
     up = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
     img_a, img_b, img_r = up(pairs[10][0]), up(pairs[11][0]), up(pairs[11][1])
     pyr_a, pyr_b, pyr_r = vo._build_pyr(img_a), vo._build_pyr(img_b), vo._build_pyr(img_r)
+    lv_a, lv_b, lv_r = ([lv[0] for lv in pyr] for pyr in (pyr_a, pyr_b, pyr_r))
     H, W = img_a.shape
     gy, gx = np.meshgrid(np.linspace(12, H - 13, 32), np.linspace(12, W - 13, 32), indexing="ij")
     p = up(np.stack([gx.ravel(), gy.ravel()], -1))
@@ -271,32 +311,69 @@ def klt_call_sites(pairs, dev):
     disp = torch.tensor([8.0, 0.0], device=dev)
     kp, kpe, cfg_t = vo.klt_params, vo.klt_params_epi, vo.cfg.tracker
     p1, ok = KLT.track_with_prior_pyr(pyr_a, pyr_b, p, seed, valid, kp)
-    half = p[::2].contiguous()
+    p1s = (p1 - disp).contiguous()
+    half = p[: len(p) // 2].contiguous()
+    half_s = (half - disp).contiguous()
+    vh = valid[: len(half)]
+    r, it, ic, itx = kp.window_radius, kp.iters, kp.iters_coarse, kpe.iters
+    img_bytes = lambda lv: sum(2 * x.numel() * 4 for x in lv)  # noqa: E731
+    pt_bytes = lambda n, out: n * (8 + 8 + 1) + n * out  # noqa: E731
+    track = (lv_a, lv_b, p, seed, valid, r, it, ic, kp.eps, kp.min_eig)
+    stereo = (lv_b[:1], lv_r[:1], p1, p1s, ok, r, itx, itx, kpe.eps, kpe.min_eig, True)
+    replenish = (lv_b, lv_r, half, half_s, vh, r, itx, itx, kpe.eps, kpe.min_eig, True, 1)
+    scale = (img_a, img_b, p, p1, sc, ok, 11, cfg_t.scale_iter)
     return {
-        "track": lambda: KLT.track_with_prior_pyr(pyr_a, pyr_b, p, seed, valid, kp),
-        "scale": lambda: KLT.track_with_scale(img_a, img_a, img_a, img_b, p, p1, sc, ok,
+        "track": dict(
+            call=lambda: KLT.track_with_prior_pyr(pyr_a, pyr_b, p, seed, valid, kp),
+            wrapper=lambda: KK.track_pyr(*track), plain=lambda c: KK.track_pyr_ref(*track, counts=c),
+            bytes=img_bytes(lv_a) + pt_bytes(len(p), 8 + 4 + 1)),
+        "scale": dict(
+            call=lambda: KLT.track_with_scale(img_a, img_a, img_a, img_b, p, p1, sc, ok,
                                               iters=cfg_t.scale_iter, use_kernel=True),
-        "stereo": lambda: KLT.track_with_prior_pyr(pyr_b, pyr_r, p1, p1 - disp, ok, kpe,
-                                                   track_levels=1, epi1d=True),
-        "replenish": lambda: KLT.track_bidirectional_pyr(pyr_b, pyr_r, half, half - disp, valid[: len(half)], kpe,
-                                                         fb_scale=5.0, back_levels=1, epi1d=True),
+            wrapper=lambda: KK.track_scale(*scale), plain=lambda c: KK.track_scale_ref(*scale, counts=c),
+            bytes=2 * img_a.numel() * 4 + pt_bytes(len(p), 4 + 8 + 4 + 1)),
+        "stereo": dict(
+            call=lambda: KLT.track_with_prior_pyr(pyr_b, pyr_r, p1, p1s, ok, kpe, track_levels=1, epi1d=True),
+            wrapper=lambda: KK.track_pyr(*stereo), plain=lambda c: KK.track_pyr_ref(*stereo, counts=c),
+            bytes=img_bytes(lv_b[:1]) + pt_bytes(len(p), 8 + 4 + 1)),
+        "replenish": dict(
+            call=lambda: KLT.track_bidirectional_pyr(pyr_b, pyr_r, half, half_s, vh, kpe, fb_scale=5.0,
+                                                     back_levels=1, epi1d=True),
+            wrapper=lambda: KK.track_pyr_bidir(*replenish),
+            plain=lambda c: KK.track_pyr_bidir_ref(*replenish, counts=c),
+            bytes=img_bytes(lv_b) + pt_bytes(len(half), 8 + 4 + 1 + 8 + 1)),
     }
 
 
-def call_site_times(pairs, dev, card):
-    """Device ms and launches per call of each main-path KLT call site (the
-    C launchers alone, replayed back to back), and the host us per call of
-    the call site and of each kernel's wrapper."""
+def call_site_times(pairs, dev, card, layouts=(1, 2, 4)):
+    """For each main-path KLT call site: its kernel launches (exactly one),
+    device ms per call for each warps-per-feature layout (the C launcher
+    alone, replayed back to back), host us per call, the plain version's
+    ms, and the bound from this run's work counts."""
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
     sites = klt_call_sites(pairs, dev)
+    default = dict(KK.WARPS_PER_FEATURE)
     out = {}
-    for name, fn in sites.items():
-        calls = recorded_launches(fn)
-        out[name] = {
-            "kernels": [c[0] for c in calls],
-            "device_ms": device_ms([(c[1], c[2]) for c in calls]),
-            "host_us": host_us(fn),
-        }
-    print(json.dumps({"klt_call_sites": out, "card": card}))
+    for name, site in sites.items():
+        counts = {}
+        site["plain"](counts)
+        b_ms, b_by = bound(counts, site["bytes"])
+        row = {"device_ms": {}, "bound_ms": b_ms, "bound_by": b_by, "work_px": counts,
+               "bytes": site["bytes"], "plain_ms": cuda_ms(lambda: site["plain"](None), reps=5, warmup=1)}
+        for wpf in layouts:
+            KK.WARPS_PER_FEATURE.update({k: wpf for k in default})
+            calls = recorded_launches(site["call"])
+            assert len(calls) == 1, f"{name}: {len(calls)} launches per call, expected 1"
+            row["kernel"] = calls[0][0]
+            row["device_ms"][wpf] = device_ms([(c[1], c[2]) for c in calls])
+        KK.WARPS_PER_FEATURE.update(default)
+        row["ms"] = row["device_ms"][default[row["kernel"]]]
+        row["host_us"] = host_us(site["wrapper"])
+        row["call_host_us"] = host_us(site["call"])
+        row["bound_share"] = b_ms / row["ms"]
+        out[name] = row
+    print(json.dumps({"klt_call_sites": out, "warps_per_feature_default": default, "card": card}))
     return out
 
 
@@ -332,7 +409,7 @@ def launched(phase: str) -> dict:
     from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
 
     counts = dict(KK.LAUNCHES)
-    for name in ("klt_level", "klt_scale"):
+    for name in ("klt_pyr", "klt_scale"):
         assert counts[name] > 0, f"{phase}: the path never launched {name}"
     return counts
 
@@ -384,6 +461,10 @@ def per_frame_path(frames, device, card):
         kinds.setdefault(kind, set()).add(json.dumps(n, sort_keys=True))
     print(json.dumps({"klt_launches_per_frame": {k: sorted(v) for k, v in kinds.items()},
                       "frames": [dict(n, n_new=s["n_new"]) for s, n in zip(vo.stats_log[1:], frame_launches[1:])]}))
+    # One klt_pyr launch each for the track climb and the stereo pass, one
+    # more for a replenish; one klt_scale.
+    for n in frame_launches[1:]:
+        assert n["klt_scale"] == 1 and n["klt_pyr"] in (2, 3), f"KLT launches of a frame: {n}"
     steady = [ms for ms, s in zip(frame_ms[3:], vo.stats_log[3:]) if not s["keyframe"]]
     print(f"time steady frame: median {statistics.median(steady):.2f} ms over {len(steady)} frames; "
           f"keyframe step: median {statistics.median(kf_ms[1:] or kf_ms):.2f} ms over "
@@ -506,6 +587,8 @@ def rectification_path(frames, device, card):
 def main() -> int:
     import torch
 
+    kernels_only = "--kernels-only" in sys.argv[1:]
+
     # 1. environment -------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA GPU")
@@ -519,11 +602,15 @@ def main() -> int:
     print(card)
 
     t0 = time.perf_counter()
-    frames = make_frames()
-    print(f"data: {sum(len(v[0]) for v in frames.values())} stereo pairs "
-          f"({', '.join(f'{k} {v[0].shape}' for k, v in frames.items())}) rendered in "
-          f"{time.perf_counter() - t0:.1f} s")
-    pairs = list(zip(frames["main"][0], frames["main"][1]))
+    if kernels_only:  # the two frames phase 3 reads
+        pairs = {i: render_pair(("main", i)) for i in (10, 11)}
+        print(f"data: frames 10, 11 of the main corridor rendered in {time.perf_counter() - t0:.1f} s")
+    else:
+        frames = make_frames()
+        print(f"data: {sum(len(v[0]) for v in frames.values())} stereo pairs "
+              f"({', '.join(f'{k} {v[0].shape}' for k, v in frames.items())}) rendered in "
+              f"{time.perf_counter() - t0:.1f} s")
+        pairs = list(zip(frames["main"][0], frames["main"][1]))
 
     # 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -546,8 +633,7 @@ def main() -> int:
     noise = (torch.rand((N_FEAT, 2), generator=gen) * 4.0 - 2.0).to(dev)
     valid = torch.ones(N_FEAT, dtype=torch.bool, device=dev)
     radius, iters = 10, 15
-    cases = {"klt_level": [], "klt_scale": []}
-    timing = {}
+    cases = {"klt_pyr": [], "klt_scale": []}
     for lvl in range(3):
         s = 2.0**lvl
         p0 = (p_grid / s).contiguous()
@@ -556,41 +642,66 @@ def main() -> int:
         args = (a, b, p0, p1, valid, radius, iters, 0.03, 1e-4, False)
         k = KK.track_level(*args)
         r = KK.track_level_ref(*args)
-        cases["klt_level"].append(compare(f"level{lvl}_2d", k[0], k[1], r[0], r[1]))
-        if lvl == 0:
-            timing["klt_level"] = (cuda_ms(lambda: KK.track_level(*args)),
-                                   cuda_ms(lambda: KK.track_level_ref(*args)),
-                                   host_us(lambda: KK.track_level(*args)))
+        cases["klt_pyr"].append(compare(f"level{lvl}_2d", k[0], k[1], r[0], r[1]))
     # epi1d: left -> right along the row from a constant 8 px disparity seed.
+    pr0 = build_pyramid(img_r0, 3)
     for lvl in range(3):
         s = 2.0**lvl
         p0 = (p_grid / s).contiguous()
         seed = (p0 - torch.tensor([8.0 / s, 0.0], device=dev)).contiguous()
-        pr0 = build_pyramid(img_r0, 3)
         args = (pyr0[lvl], pr0[lvl], p0, seed, valid, radius, 8, 0.03, 1e-4, True)
         k = KK.track_level(*args)
         r = KK.track_level_ref(*args)
-        cases["klt_level"].append(compare(f"level{lvl}_epi1d", k[0], k[1], r[0], r[1]))
-    # scale: seeded by the forward level-0 track, s = 1 and s in [0.9, 1.12].
+        cases["klt_pyr"].append(compare(f"level{lvl}_epi1d", k[0], k[1], r[0], r[1]))
+    # The fused climb at main-path shapes: the track stage's forward climb
+    # (N = 1024, 3 levels, 15/6 iterations) and replenish's bidirectional
+    # epi1d climb (N = 512, 3 levels forward, 1 back, 8 iterations).
+    seed = (p_grid + noise).contiguous()
+    args = (list(pyr0), list(pyr1), p_grid, seed, valid, radius, iters, 6)
+    k, r = KK.track_pyr(*args), KK.track_pyr_ref(*args)
+    cases["klt_pyr"].append(compare("climb_2d", k[0], k[1], r[0], r[1]))
+    half = p_grid[: N_FEAT // 2].contiguous()
+    seed = (half - torch.tensor([8.0, 0.0], device=dev)).contiguous()
+    args = (list(pyr1), list(pr0), half, seed, valid[: N_FEAT // 2], radius, 8, 8, 0.03, 1e-4, True)
+    k = KK.track_pyr_bidir(*args, back_levels=1)
+    r = KK.track_pyr_bidir_ref(*args, back_levels=1)
+    cases["klt_pyr"].append(compare("climb_bidir_epi1d_fwd", k[0], k[1], r[0], r[1]))
+    cases["klt_pyr"].append(compare("climb_bidir_epi1d_back", k[3], k[4], r[3], r[4]))
+    # scale: seeded by the forward level-0 track, s = 1, s in [0.9, 1.12]
+    # (the corridor's range), and the clip limits 0.5 and 2.
     seed, ok_seed, _, _ = KK.track_level(pyr0[0], pyr1[0], p_grid, (p_grid + noise).contiguous(),
                                          valid, radius, iters)
     for tag, sc in (("s1", torch.ones(N_FEAT)),
-                    ("s_corridor", 0.9 + 0.22 * torch.rand(N_FEAT, generator=gen))):
-        sc = sc.to(dev)
-        args = (img_l0, img_l1, p_grid, seed.contiguous(), sc, ok_seed, 11, 12, 0.01)
+                    ("s_corridor", 0.9 + 0.22 * torch.rand(N_FEAT, generator=gen)),
+                    ("s0.5", torch.full((N_FEAT,), 0.5)), ("s2", torch.full((N_FEAT,), 2.0))):
+        args = (img_l0, img_l1, p_grid, seed.contiguous(), sc.to(dev), ok_seed, 11, 12, 0.01)
         k = KK.track_scale(*args)
         r = KK.track_scale_ref(*args)
         cases["klt_scale"].append(compare(f"scale_{tag}", k[0], k[2], r[0], r[2]))
-        if tag == "s_corridor":
-            timing["klt_scale"] = (cuda_ms(lambda: KK.track_scale(*args)),
-                                   cuda_ms(lambda: KK.track_scale_ref(*args)),
-                                   host_us(lambda: KK.track_scale(*args)))
     torch.cuda.synchronize()
-    for name, (ms, plain, hus) in timing.items():
-        print(f"time {name}: wrapper {ms:.4f} ms, plain {plain:.4f} ms (N={N_FEAT}, level 0, "
-              f"median of 20 CUDA-event timings around the wrapper call); wrapper host "
-              f"{hus:.1f} us per call on {card}")
-    call_site_times(pairs, dev, card)
+    sites = call_site_times(pairs, dev, card)
+    timing = {
+        "klt_pyr": sites["track"],
+        "klt_scale": sites["scale"],
+    }
+    for name, row in timing.items():
+        print(f"time {name}: device {row['ms']:.4f} ms per launch (100 back-to-back launches), bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']}, plain {row['plain_ms']:.4f} ms, wrapper host "
+              f"{row['host_us']:.1f} us per call (N={N_FEAT}) on {card}")
+    default_wpf = dict(KK.WARPS_PER_FEATURE)
+    for wpf in (1, 2, 4):  # every layout of the sweep against the plain version
+        KK.WARPS_PER_FEATURE.update({"klt_pyr": wpf, "klt_scale": wpf})
+        args = (list(pyr0), list(pyr1), p_grid, (p_grid + noise).contiguous(), valid, radius, iters, 6)
+        k, r = KK.track_pyr(*args), KK.track_pyr_ref(*args)
+        compare(f"climb_2d_wpf{wpf}", k[0], k[1], r[0], r[1])
+        args = (img_l0, img_l1, p_grid, seed.contiguous(), torch.full((N_FEAT,), 2.0, device=dev),
+                ok_seed, 11, 12, 0.01)
+        k, r = KK.track_scale(*args), KK.track_scale_ref(*args)
+        compare(f"scale_s2_wpf{wpf}", k[0], k[2], r[0], r[2])
+    KK.WARPS_PER_FEATURE.update(default_wpf)
+    if kernels_only:
+        print("kernels only: phases 4-8 not run")
+        return 0
 
     # 4.-7. the paths -------------------------------------------------------
     per_frame_path(frames, dev, card)
@@ -599,7 +710,7 @@ def main() -> int:
 
     # 8. result ------------------------------------------------------------
     replaces = {
-        "klt_level": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:380",
+        "klt_pyr": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:380",
         "klt_scale": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:621",
     }
     table = {"kernels": [
@@ -607,9 +718,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "visual_odometry_ros_tpu_torch/csrc/klt.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(c["max_dp_px"] for c in cases[name]),
-            "ms": timing[name][0], "plain_ms": timing[name][1], "host_ms": timing[name][2] * 1e-3,
+            "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
+            "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
+            "library_ms": None, "host_ms": timing[name]["host_us"] * 1e-3,
         }
-        for name in ("klt_level", "klt_scale")
+        for name in ("klt_pyr", "klt_scale")
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,10 @@ from visual_odometry_ros_tpu_torch import camera as TC  # noqa: E402
 from visual_odometry_ros_tpu_torch import io as tio  # noqa: E402
 from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops import features as TF  # noqa: E402
+from visual_odometry_ros_tpu_torch.ops import klt as KLT  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops import pnp as TPNP  # noqa: E402
+from visual_odometry_ros_tpu_torch.ops.pyramid import build_pyramid  # noqa: E402
 from visual_odometry_ros_tpu_torch.utils import geometry as TG  # noqa: E402
 
 torch.set_num_threads(2)
@@ -66,7 +68,7 @@ def test_klt_level_kernel_matches_plain_version(dev, epi1d):
     k = KK.track_level(a, b, p0, p1, valid, radius=10, iters=15, epi1d=epi1d)
     r = KK.track_level_ref(a, b, p0, p1, valid, 10, 15, 0.03, 1e-4, epi1d)
     torch.cuda.synchronize()
-    assert KK.LAUNCHES["klt_level"] == 1
+    assert KK.LAUNCHES["klt_pyr"] == 1
     assert torch.equal(k[1], r[1]) and torch.equal(k[3], r[3])
     # Only the summation order differs (warp shuffle tree vs PyTorch reduction).
     torch.testing.assert_close(k[0], r[0], atol=1e-3, rtol=0)
@@ -103,6 +105,158 @@ def test_kernel_wrappers_refuse_what_they_cannot_serve(dev):
         KK.track_scale(a, b, p0, p0, torch.ones(len(p0), device=dev), valid, radius=12)
 
 
+def agree(p_k, ok_k, p_r, ok_r, min_live=0.25):
+    """chip_smoke.py's kernel-vs-plain tolerances: median |dp| <= 1e-3 px
+    over features live in both, at most 0.5% of them farther apart than
+    0.05 px (float32 rounding can move the |step| < eps stop test by one
+    step), flags equal on at least 99.5% of features."""
+    both = ok_k & ok_r
+    assert int(both.sum()) >= min_live * ok_r.numel()
+    dp = torch.linalg.norm(p_k - p_r, dim=-1)[both]
+    assert float(dp.median()) <= 1e-3
+    assert float((dp > 0.05).float().mean()) <= 0.005
+    assert float((ok_k == ok_r).float().mean()) >= 0.995
+
+
+def border_features(dev, H=120, W=160):
+    """Features 1-2 px inside each border (and the corners), then a grid."""
+    pts = []
+    for d in (1.0, 1.5, 2.0):
+        for x in np.linspace(12, W - 13, 7):
+            pts += [(x, d), (x, H - 1 - d)]
+        for y in np.linspace(12, H - 13, 5):
+            pts += [(d, y), (W - 1 - d, y)]
+        pts += [(d, d), (W - 1 - d, d), (d, H - 1 - d), (W - 1 - d, H - 1 - d)]
+    grid = _grid(dev, H, W, margin=6, n=10).cpu().numpy().tolist()
+    return torch.tensor(pts + grid, dtype=torch.float32, device=dev)
+
+
+@pytest.fixture
+def wpf_default():
+    saved = dict(KK.WARPS_PER_FEATURE)
+    yield saved
+    KK.WARPS_PER_FEATURE.update(saved)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wpf", [1, 2, 4])
+@pytest.mark.parametrize("epi1d", [False, True])
+def test_klt_pyr_climb_matches_plain_version(dev, wpf_default, wpf, epi1d):
+    """The fused climb, forward and bidirectional, with features 1-2 px from
+    every border, for each warps-per-feature layout."""
+    KK.WARPS_PER_FEATURE["klt_pyr"] = wpf
+    a, b = _pair(dev, shift=(3, 0) if epi1d else (3, -2))
+    imgs0, imgs1 = list(build_pyramid(a, 3)), list(build_pyramid(b, 3))
+    p0 = border_features(dev)
+    seed = (p0 + torch.tensor([2.0, 0.0 if epi1d else -1.0], device=dev)).contiguous()
+    valid = torch.ones(len(p0), dtype=torch.bool, device=dev)
+    args = (imgs0, imgs1, p0, seed, valid, 10, 15, 6, 0.03, 1e-4, epi1d)
+    KK.reset_launch_counts()
+    k = KK.track_pyr(*args)
+    kb = KK.track_pyr_bidir(*args, back_levels=1)
+    torch.cuda.synchronize()
+    assert KK.LAUNCHES["klt_pyr"] == 2
+    r = KK.track_pyr_ref(*args)
+    rb = KK.track_pyr_bidir_ref(*args, back_levels=1)
+    agree(k[0], k[1], r[0], r[1])
+    agree(kb[0], kb[1], rb[0], rb[1])
+    agree(kb[3], kb[4], rb[3], rb[4])
+    assert bool(k[1][:8].any())  # some border features stay live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wpf", [1, 2, 4])
+def test_klt_pyr_restages_the_target_box(dev, wpf_default, wpf):
+    """Seeds 6-10 px from the answer at one level: Gauss-Newton walks out of
+    the first staged box (4 px margin) and the kernel re-stages it."""
+    KK.WARPS_PER_FEATURE["klt_pyr"] = wpf
+    a, b = _pair(dev, shift=(2, -1), seed=41)
+    p0 = _grid(dev, margin=24, n=12)
+    rng = np.random.default_rng(4)
+    ang = rng.uniform(0, 2 * np.pi, len(p0))
+    rad = rng.uniform(6, 10, len(p0))
+    off = torch.tensor(np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1), dtype=torch.float32, device=dev)
+    seed = (p0 + torch.tensor([2.0, -1.0], device=dev) + off).contiguous()
+    valid = torch.ones(len(p0), dtype=torch.bool, device=dev)
+    k = KK.track_level(a, b, p0, seed, valid, radius=10, iters=30)
+    r = KK.track_level_ref(a, b, p0, seed, valid, 10, 30)
+    agree(k[0], k[1], r[0], r[1])
+    walked = torch.linalg.norm(r[0] - seed, dim=-1)[r[1]]
+    assert float((walked > 5.0).float().mean()) > 0.5  # most estimates left the first box
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wpf", [1, 2, 4])
+@pytest.mark.parametrize("s", [0.5, 2.0])
+def test_klt_scale_at_the_clip_limits(dev, wpf_default, wpf, s):
+    KK.WARPS_PER_FEATURE["klt_scale"] = wpf
+    a, b = _pair(dev, shift=(2, -1))
+    p0 = border_features(dev)
+    valid = torch.ones(len(p0), dtype=torch.bool, device=dev)
+    sc = torch.full((len(p0),), s, device=dev)
+    p1 = (p0 + torch.tensor([1.5, -0.5], device=dev)).contiguous()
+    k = KK.track_scale(a, b, p0, p1, sc, valid, radius=11, iters=12)
+    r = KK.track_scale_ref(a, b, p0, p1, sc, valid, 11, 12)
+    agree(k[0], k[2], r[0], r[2], min_live=0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1023, 1024, 4096])
+def test_klt_kernels_at_batch_sizes(dev, n):
+    a, b = _pair(dev, shift=(2, -1))
+    imgs0, imgs1 = list(build_pyramid(a, 3)), list(build_pyramid(b, 3))
+    rng = np.random.default_rng(n)
+    p0 = torch.tensor(rng.uniform([12, 12], [147, 107], (n, 2)), dtype=torch.float32, device=dev)
+    seed = (p0 + torch.tensor(rng.uniform(1, 3, (n, 2)) * [1, -0.5], dtype=torch.float32, device=dev)).contiguous()
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    k = KK.track_pyr(imgs0, imgs1, p0, seed, valid, 10, 15, 6)
+    r = KK.track_pyr_ref(imgs0, imgs1, p0, seed, valid, 10, 15, 6)
+    ks = KK.track_scale(a, b, p0, k[0].contiguous(), torch.ones(n, device=dev), k[1], 11, 12)
+    rs = KK.track_scale_ref(a, b, p0, k[0].contiguous(), torch.ones(n, device=dev), k[1], 11, 12)
+    if n == 1:  # one feature: exact flags, 1e-3 px
+        assert torch.equal(k[1], r[1]) and torch.equal(ks[2], rs[2])
+        torch.testing.assert_close(k[0], r[0], atol=1e-3, rtol=0)
+    else:
+        agree(k[0], k[1], r[0], r[1])
+        agree(ks[0], ks[2], rs[0], rs[2])
+
+
+@pytest.mark.cuda
+def test_klt_kernels_on_an_all_invalid_batch(dev):
+    a, b = _pair(dev)
+    imgs0, imgs1 = list(build_pyramid(a, 3)), list(build_pyramid(b, 3))
+    p0 = _grid(dev, margin=12)
+    seed = (p0 + 1.0).contiguous()
+    valid = torch.zeros(len(p0), dtype=torch.bool, device=dev)
+    p1, live, err, p0b, live0 = KK.track_pyr_bidir(imgs0, imgs1, p0, seed, valid, 10, 15, 6, back_levels=1)
+    assert torch.equal(p1, seed) and not live.any() and not live0.any()
+    assert torch.equal(err, torch.zeros_like(err))
+    assert torch.equal(p0b, p0 / 1.0)  # the backward climb keeps its seed, p0
+    q, e, ok = KK.track_scale(a, b, p0, seed, torch.ones(len(p0), device=dev), valid, 11, 12)
+    assert torch.equal(q, seed) and not ok.any() and torch.equal(e, torch.zeros_like(e))
+
+
+@pytest.mark.cuda
+def test_one_klt_pyr_launch_per_pyramid_track(dev):
+    """ops/klt's pyramid tracks launch one kernel per call on CUDA tensors."""
+    a, b = _pair(dev, shift=(2, -1))
+    pyr0 = tuple((x, x, x) for x in build_pyramid(a, 3))
+    pyr1 = tuple((x, x, x) for x in build_pyramid(b, 3))
+    p0 = _grid(dev, margin=12)
+    prior = (p0 + torch.tensor([2.0, -1.0], device=dev)).contiguous()
+    valid = torch.ones(len(p0), dtype=torch.bool, device=dev)
+    params = KLT.KLTParams(window_radius=10, levels=3, iters=15, iters_coarse=6, use_kernel=True)
+    for call in (
+        lambda: KLT._pyr_track(pyr0, pyr1, p0, prior, valid, params),
+        lambda: KLT._pyr_track(pyr0, pyr1, p0, prior, valid, params, track_levels=1, epi1d=True),
+        lambda: KLT.track_with_prior_pyr(pyr0, pyr1, p0, prior, valid, params),
+        lambda: KLT.track_bidirectional_pyr(pyr0, pyr1, p0, prior, valid, params, fb_scale=5.0, back_levels=1),
+    ):
+        KK.reset_launch_counts()
+        call()
+        assert KK.LAUNCHES == {"klt_pyr": 1, "klt_scale": 0}
+
+
 def plane_cfg():
     """tests/test_stereo_vo_pipeline.py:_small_cfg."""
     cfg = tio.VOConfig()
@@ -133,7 +287,7 @@ def test_pipeline_runs_on_cuda_through_the_kernels(dev):
     KK.reset_launch_counts()
     for T in poses:
         vo.track_stereo_images(*world.stereo_pair(T.astype(np.float64)))
-    assert KK.LAUNCHES["klt_level"] > 0 and KK.LAUNCHES["klt_scale"] > 0
+    assert KK.LAUNCHES["klt_pyr"] > 0 and KK.LAUNCHES["klt_scale"] > 0
     traj = np.stack(vo.trajectory)
     # Bounds of tests/test_stereo_vo_pipeline.py.
     assert tio.ate_rmse(traj, poses, align="none") < 0.05 * 0.22 * 11

@@ -4,6 +4,8 @@ in interpret mode, on CPU. The kernels themselves are checked against
 these plain versions on the card by tests/test_torch_cuda.py.
 """
 
+from functools import partial
+
 import jax
 
 jax.config.update("jax_platforms", "cpu")
@@ -14,6 +16,7 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from visual_odometry_ros_tpu.ops import klt as JK  # noqa: E402
+from visual_odometry_ros_tpu.ops import klt_pallas_fp  # noqa: E402
 from visual_odometry_ros_tpu.ops.klt_pallas_fp import track_level_fp, track_scale_fp  # noqa: E402
 from visual_odometry_ros_tpu.ops.pyramid import build_pyramid_with_gradients as j_pyr  # noqa: E402
 from visual_odometry_ros_tpu.ops.pyramid import scharr_gradients as j_scharr  # noqa: E402
@@ -278,7 +281,7 @@ def test_wrappers_use_plain_version_on_cpu_and_check_inputs():
     out = KK.track_scale(T(img0), T(img1), p0, p0.clone(), sc, valid, radius=11, iters=5)
     for a, b in zip(out, KK.track_scale_ref(T(img0), T(img1), p0, p0.clone(), sc, valid, 11, 5)):
         assert torch.equal(a, b)
-    assert KK.LAUNCHES == {"klt_level": 0, "klt_scale": 0}  # plain versions never count
+    assert KK.LAUNCHES == {"klt_pyr": 0, "klt_scale": 0}  # plain versions never count
     with pytest.raises(TypeError):
         KK.track_level(T(img0).double(), T(img1), p0, p0, valid)
     with pytest.raises(ValueError):
@@ -289,3 +292,110 @@ def test_wrappers_use_plain_version_on_cpu_and_check_inputs():
         KK.track_level(T(img0), T(img1), p0, p0, valid, radius=12)
     with pytest.raises(TypeError):
         KK.track_level(T(img0), T(img1), p0, p0, valid.float())
+
+
+# ----------------------------------------------------------------------------
+# The fused climb (`klt_pyr`): its plain version against the JAX package's
+# `_pyr_track` kernel leg (Pallas, interpret mode), and the port's kernel leg
+# against the level-by-level composition it replaced.
+# ----------------------------------------------------------------------------
+
+PYR_PARAMS = dict(window_radius=10, levels=3, iters=15, iters_coarse=6, max_err=60.0)
+
+
+def climb_inputs(epi1d):
+    """120x160 pair, features and prior. Float32 rounding can move the
+    |step| < eps stop test by one iteration (a step < 0.03 px at a coarse
+    level); on these inputs no feature is that close to it."""
+    if epi1d:
+        img0, img1 = shifted_pair(shift=(3.1, 0.0), seed=5)
+        step = np.float32([2.0, 0.0])
+    else:
+        img0, img1 = shifted_pair(shift=(2.4, -1.6), seed=21)
+        step = np.float32([2.0, -1.0])
+    p0 = grid_features(120, 160, margin=14, n=7)
+    return img0, img1, p0, p0 + step
+
+
+def old_level_composition(pyr0, pyr1, p0, p1_init, valid, params, L, epi1d):
+    """ops/klt._pyr_track's kernel leg before the fused climb: one
+    `track_level` per level with the glue around it."""
+    p1 = p1_init / 2.0 ** (L - 1)
+    live = valid
+    err = torch.zeros(p0.shape[0], dtype=torch.float32)
+    for lvl in range(L - 1, -1, -1):
+        s = 2.0**lvl
+        lvl_iters = params.iters if lvl == 0 else (params.iters_coarse or params.iters)
+        p1_new, ok_new, err_new, proc = KK.track_level(
+            pyr0[lvl][0], pyr1[lvl][0], (p0 / s).contiguous(), p1.contiguous(), live,
+            radius=params.window_radius, iters=lvl_iters, eps=params.eps, min_eig=params.min_eig,
+            epi1d=epi1d,
+        )
+        p1 = torch.where(proc[:, None], p1_new, p1)
+        if lvl == 0:
+            live = live & proc & ok_new
+            err = err_new
+        if lvl > 0:
+            p1 = p1 * 2.0
+    return p1, live, err
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+@pytest.mark.parametrize("epi1d", [False, True])
+def test_track_pyr_ref_matches_pallas_pyr_track(monkeypatch, epi1d, bidir):
+    """track_pyr_ref / track_pyr_bidir_ref against the JAX `_pyr_track`
+    kernel leg, its Pallas level kernel in interpret mode: flags equal,
+    points within 1e-3 px."""
+    monkeypatch.setattr(klt_pallas_fp, "track_level_fp", partial(klt_pallas_fp.track_level_fp, interpret=True))
+    img0, img1, p0, prior = climb_inputs(epi1d)
+    valid = np.ones(len(p0), bool)
+    pj = JK.KLTParams(**PYR_PARAMS, use_pallas=True)
+    pyr0j, pyr1j = j_pyr(jnp.asarray(img0), 3), j_pyr(jnp.asarray(img1), 3)
+    p1j, live1j, _ = JK._pyr_track(pyr0j, pyr1j, jnp.asarray(p0), jnp.asarray(prior), jnp.asarray(valid), pj,
+                                   epi1d=epi1d)
+    imgs0 = [a[0] for a in t_pyr(T(img0), 3, with_gradients=False)]
+    imgs1 = [a[0] for a in t_pyr(T(img1), 3, with_gradients=False)]
+    args = (imgs0, imgs1, T(p0), T(prior), T(valid), 10, 15, 6, 0.03, 1e-4, epi1d)
+    if bidir:
+        p0bj, live0j, _ = JK._pyr_track(pyr1j, pyr0j, p1j, jnp.asarray(p0), live1j, pj, 1, epi1d=epi1d)
+        p1t, live1t, _, p0bt, live0t = KK.track_pyr_bidir_ref(*args, back_levels=1)
+        np.testing.assert_array_equal(live0t.numpy(), np.asarray(live0j))
+        m = live0t.numpy()
+        np.testing.assert_allclose(p0bt.numpy()[m], np.asarray(p0bj)[m], atol=1e-3)
+    else:
+        p1t, live1t, _ = KK.track_pyr_ref(*args)
+    np.testing.assert_array_equal(live1t.numpy(), np.asarray(live1j))
+    assert live1t.sum() >= 30
+    np.testing.assert_allclose(p1t.numpy(), np.asarray(p1j), atol=1e-3)
+
+
+@pytest.mark.parametrize("epi1d", [False, True])
+def test_pyr_track_kernel_leg_equals_level_composition(epi1d):
+    """The port's kernel legs on CPU (track_pyr / track_pyr_bidir, one call
+    each) give, bit for bit, what one track_level per level gave."""
+    img0, img1, p0, prior = climb_inputs(epi1d)
+    params = TK.KLTParams(**PYR_PARAMS, use_kernel=True)
+    pyr0 = t_pyr(T(img0), 3, with_gradients=False)
+    pyr1 = t_pyr(T(img1), 3, with_gradients=False)
+    valid = torch.ones(len(p0), dtype=torch.bool)
+    valid[5] = False
+    p0t, prior_t = T(p0), T(prior)
+    for track_levels in (None, 1, 2):
+        L = track_levels or 3
+        new = TK._pyr_track(pyr0, pyr1, p0t, prior_t, valid, params, track_levels, epi1d=epi1d)
+        old = old_level_composition(pyr0, pyr1, p0t, prior_t, valid, params, L, epi1d)
+        for a, b in zip(new, old):
+            assert torch.equal(a, b)
+    # Bidirectional: forward climb, then the backward climb over one level.
+    p1, live1, err1, p0b, live0 = KK.track_pyr_bidir(
+        [a[0] for a in pyr0], [a[0] for a in pyr1], p0t, prior_t, valid, 10, 15, 6, epi1d=epi1d, back_levels=1)
+    f = old_level_composition(pyr0, pyr1, p0t, prior_t, valid, params, 3, epi1d)
+    b = old_level_composition(pyr1, pyr0, f[0], p0t, f[1], params, 1, epi1d)
+    for x, y in zip((p1, live1, err1, p0b, live0), (*f, b[0], b[1])):
+        assert torch.equal(x, y)
+    p1_new, ok_new = TK.track_bidirectional_pyr(pyr0, pyr1, p0t, prior_t, valid, params, fb_scale=5.0,
+                                                back_levels=1, epi1d=epi1d)
+    fb2 = torch.sum((b[0] - p0t) ** 2, dim=-1)
+    ok_old = f[1] & b[1] & (f[2] < params.max_err) & (fb2 < (params.fb_thresh * 5.0) ** 2) & TK._in_border(
+        f[0], (120, 160), params.border)
+    assert torch.equal(p1_new, f[0]) and torch.equal(ok_new, ok_old) and int(ok_old.sum()) >= 30

@@ -2,9 +2,10 @@
 
 Counterpart of `visual_odometry_ros_tpu/ops/klt.py`. Two legs, chosen by
 `KLTParams.use_kernel` (from `cfg.tracker.use_pallas`):
-  - kernel leg: each pyramid level and the scale refinement go through
-    `ops/klt_kernels.py` (the CUDA kernels on CUDA tensors, their plain
-    versions on CPU tensors);
+  - kernel leg: a whole pyramid climb (forward, or forward and backward for
+    `track_bidirectional_pyr`) and the scale refinement each go through one
+    call of `ops/klt_kernels.py` (one CUDA kernel launch on CUDA tensors,
+    the plain version on CPU tensors);
   - plain leg ("off"): the port of the reference's jnp leg (`_track_one_level`
     and the checkerboard `track_with_scale`), for tight CPU parity.
 """
@@ -101,9 +102,18 @@ def _track_one_level(img0, gx0, gy0, img1, p0, p1_init, valid, offsets, iters, e
 def _pyr_track(pyr0, pyr1, p0, p1_init, valid, params: KLTParams, track_levels: int | None = None,
                epi1d: bool = False):
     """Coarse-to-fine track p0 (level-0 coords) -> p1. `track_levels` limits
-    the climb to the finest levels (prior-seeded passes)."""
-    offsets = _patch_offsets(params.window_radius, p0.device)
+    the climb to the finest levels (prior-seeded passes). The kernel leg is
+    one `klt_pyr` launch for the whole climb."""
     L = min(params.levels, track_levels) if track_levels else params.levels
+    if params.use_kernel:
+        return KK.track_pyr(
+            [pyr0[lvl][0] for lvl in range(L)], [pyr1[lvl][0] for lvl in range(L)],
+            p0.contiguous(), p1_init.contiguous(), valid.contiguous(),
+            radius=params.window_radius, iters=params.iters,
+            iters_coarse=params.iters_coarse or params.iters, eps=params.eps,
+            min_eig=params.min_eig, epi1d=epi1d,
+        )
+    offsets = _patch_offsets(params.window_radius, p0.device)
     p1 = p1_init / 2.0 ** (L - 1)
     live = valid
     err = torch.zeros(p0.shape[0], dtype=torch.float32, device=p0.device)
@@ -112,23 +122,10 @@ def _pyr_track(pyr0, pyr1, p0, p1_init, valid, params: KLTParams, track_levels: 
         img0, gx0, gy0 = pyr0[lvl]
         img1 = pyr1[lvl][0]
         lvl_iters = params.iters if lvl == 0 else (params.iters_coarse or params.iters)
-        if params.use_kernel:
-            # Unprocessed features pass through to the next level; liveness
-            # is decided at level 0.
-            p1_new, ok_new, err_new, proc = KK.track_level(
-                img0, img1, (p0 / s).contiguous(), p1.contiguous(), live,
-                radius=params.window_radius, iters=lvl_iters,
-                eps=params.eps, min_eig=params.min_eig, epi1d=epi1d,
-            )
-            p1 = torch.where(proc[:, None], p1_new, p1)
-            if lvl == 0:
-                live = live & proc & ok_new
-                err = err_new
-        else:
-            p1, live, err = _track_one_level(
-                img0, gx0, gy0, img1, p0 / s, p1, live, offsets, lvl_iters,
-                params.eps, params.min_eig, epi1d=epi1d,
-            )
+        p1, live, err = _track_one_level(
+            img0, gx0, gy0, img1, p0 / s, p1, live, offsets, lvl_iters,
+            params.eps, params.min_eig, epi1d=epi1d,
+        )
         if lvl > 0:
             p1 = p1 * 2.0
     return p1, live, err
@@ -153,8 +150,18 @@ def track_bidirectional_pyr(pyr0, pyr1, p0, p1_prior, valid, params: KLTParams =
                             epi1d: bool = False):
     """Forward + backward track with the fb-distance gate. Returns (p1, ok)."""
     shape = pyr1[0][0].shape
-    p1, live1, err1 = _pyr_track(pyr0, pyr1, p0, p1_prior, valid, params, epi1d=epi1d)
-    p0b, live0, _ = _pyr_track(pyr1, pyr0, p1, p0, live1, params, back_levels, epi1d=epi1d)
+    if params.use_kernel:  # both climbs in one klt_pyr launch
+        L = params.levels
+        p1, live1, err1, p0b, live0 = KK.track_pyr_bidir(
+            [pyr0[lvl][0] for lvl in range(L)], [pyr1[lvl][0] for lvl in range(L)],
+            p0.contiguous(), p1_prior.contiguous(), valid.contiguous(),
+            radius=params.window_radius, iters=params.iters,
+            iters_coarse=params.iters_coarse or params.iters, eps=params.eps,
+            min_eig=params.min_eig, epi1d=epi1d, back_levels=min(L, back_levels) if back_levels else L,
+        )
+    else:
+        p1, live1, err1 = _pyr_track(pyr0, pyr1, p0, p1_prior, valid, params, epi1d=epi1d)
+        p0b, live0, _ = _pyr_track(pyr1, pyr0, p1, p0, live1, params, back_levels, epi1d=epi1d)
     fb2 = torch.sum((p0b - p0) ** 2, dim=-1)
     thr = (params.fb_thresh * fb_scale) ** 2
     ok = live1 & live0 & (err1 < params.max_err) & (fb2 < thr) & _in_border(p1, shape, params.border)
