@@ -17,9 +17,8 @@ the final line):
      against its plain PyTorch version on the same inputs; then, at the
      main path's four KLT call sites (track climb, scale, stereo,
      replenish), one launch per call asserted, device time per launch (C
-     launcher alone, back to back) for 1, 2 and 4 warps per feature, host
-     time per call, the plain version's time and the bound from this run's
-     work counts;
+     launcher alone, back to back), host time per call, the plain version's
+     time and the bound from this run's work counts;
   4. per-frame path: `StereoVO(cfg, device="cuda")` at the bench.py
      configuration over 1 + 18 frames of the bench corridor at 0.25 m/frame
      through `track_stereo_images`; times steady and keyframe steps and
@@ -35,9 +34,8 @@ the final line):
      `flagDoUndistortion=True` on the 640x480 plane world rendered through
      radtan-distorted lenses, 1 + 8 frames at 0.22 m/frame through
      `track_stereo_batch`.
-`--kernels-only` runs phases 1-3 on the two frames phase 3 reads and prints
-no result line. Every path is driven with the kernel launch counts set to 0
-just before it and read just after. The last two lines are the kernel table (launches of
+Every path is driven with the kernel launch counts set to 0 just before it
+and read just after. The last two lines are the kernel table (launches of
 the serving path) and {"ok": true, "device": ...}. This script imports no
 JAX.
 """
@@ -345,35 +343,27 @@ def klt_call_sites(pairs, dev):
     }
 
 
-def call_site_times(pairs, dev, card, layouts=(1, 2, 4)):
+def call_site_times(pairs, dev, card):
     """For each main-path KLT call site: its kernel launches (exactly one),
-    device ms per call for each warps-per-feature layout (the C launcher
-    alone, replayed back to back), host us per call, the plain version's
-    ms, and the bound from this run's work counts."""
-    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
-
+    device ms per call (the C launcher alone, replayed back to back), host
+    us per call of the kernel's wrapper and of the call site, the plain
+    version's ms, and the bound from this run's work counts."""
     sites = klt_call_sites(pairs, dev)
-    default = dict(KK.WARPS_PER_FEATURE)
     out = {}
     for name, site in sites.items():
         counts = {}
         site["plain"](counts)
         b_ms, b_by = bound(counts, site["bytes"])
-        row = {"device_ms": {}, "bound_ms": b_ms, "bound_by": b_by, "work_px": counts,
-               "bytes": site["bytes"], "plain_ms": cuda_ms(lambda: site["plain"](None), reps=5, warmup=1)}
-        for wpf in layouts:
-            KK.WARPS_PER_FEATURE.update({k: wpf for k in default})
-            calls = recorded_launches(site["call"])
-            assert len(calls) == 1, f"{name}: {len(calls)} launches per call, expected 1"
-            row["kernel"] = calls[0][0]
-            row["device_ms"][wpf] = device_ms([(c[1], c[2]) for c in calls])
-        KK.WARPS_PER_FEATURE.update(default)
-        row["ms"] = row["device_ms"][default[row["kernel"]]]
+        calls = recorded_launches(site["call"])
+        assert len(calls) == 1, f"{name}: {len(calls)} launches per call, expected 1"
+        row = {"kernel": calls[0][0], "ms": device_ms([(c[1], c[2]) for c in calls]),
+               "bound_ms": b_ms, "bound_by": b_by, "work_px": counts, "bytes": site["bytes"],
+               "plain_ms": cuda_ms(lambda: site["plain"](None), reps=5, warmup=1)}
         row["host_us"] = host_us(site["wrapper"])
         row["call_host_us"] = host_us(site["call"])
         row["bound_share"] = b_ms / row["ms"]
         out[name] = row
-    print(json.dumps({"klt_call_sites": out, "warps_per_feature_default": default, "card": card}))
+    print(json.dumps({"klt_call_sites": out, "card": card}))
     return out
 
 
@@ -587,8 +577,6 @@ def rectification_path(frames, device, card):
 def main() -> int:
     import torch
 
-    kernels_only = "--kernels-only" in sys.argv[1:]
-
     # 1. environment -------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA GPU")
@@ -602,15 +590,11 @@ def main() -> int:
     print(card)
 
     t0 = time.perf_counter()
-    if kernels_only:  # the two frames phase 3 reads
-        pairs = {i: render_pair(("main", i)) for i in (10, 11)}
-        print(f"data: frames 10, 11 of the main corridor rendered in {time.perf_counter() - t0:.1f} s")
-    else:
-        frames = make_frames()
-        print(f"data: {sum(len(v[0]) for v in frames.values())} stereo pairs "
-              f"({', '.join(f'{k} {v[0].shape}' for k, v in frames.items())}) rendered in "
-              f"{time.perf_counter() - t0:.1f} s")
-        pairs = list(zip(frames["main"][0], frames["main"][1]))
+    frames = make_frames()
+    print(f"data: {sum(len(v[0]) for v in frames.values())} stereo pairs "
+          f"({', '.join(f'{k} {v[0].shape}' for k, v in frames.items())}) rendered in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pairs = list(zip(frames["main"][0], frames["main"][1]))
 
     # 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -688,20 +672,6 @@ def main() -> int:
         print(f"time {name}: device {row['ms']:.4f} ms per launch (100 back-to-back launches), bound "
               f"{row['bound_ms']:.4f} ms by {row['bound_by']}, plain {row['plain_ms']:.4f} ms, wrapper host "
               f"{row['host_us']:.1f} us per call (N={N_FEAT}) on {card}")
-    default_wpf = dict(KK.WARPS_PER_FEATURE)
-    for wpf in (1, 2, 4):  # every layout of the sweep against the plain version
-        KK.WARPS_PER_FEATURE.update({"klt_pyr": wpf, "klt_scale": wpf})
-        args = (list(pyr0), list(pyr1), p_grid, (p_grid + noise).contiguous(), valid, radius, iters, 6)
-        k, r = KK.track_pyr(*args), KK.track_pyr_ref(*args)
-        compare(f"climb_2d_wpf{wpf}", k[0], k[1], r[0], r[1])
-        args = (img_l0, img_l1, p_grid, seed.contiguous(), torch.full((N_FEAT,), 2.0, device=dev),
-                ok_seed, 11, 12, 0.01)
-        k, r = KK.track_scale(*args), KK.track_scale_ref(*args)
-        compare(f"scale_s2_wpf{wpf}", k[0], k[2], r[0], r[2])
-    KK.WARPS_PER_FEATURE.update(default_wpf)
-    if kernels_only:
-        print("kernels only: phases 4-8 not run")
-        return 0
 
     # 4.-7. the paths -------------------------------------------------------
     per_frame_path(frames, dev, card)

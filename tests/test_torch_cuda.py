@@ -131,20 +131,11 @@ def border_features(dev, H=120, W=160):
     return torch.tensor(pts + grid, dtype=torch.float32, device=dev)
 
 
-@pytest.fixture
-def wpf_default():
-    saved = dict(KK.WARPS_PER_FEATURE)
-    yield saved
-    KK.WARPS_PER_FEATURE.update(saved)
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("wpf", [1, 2, 4])
 @pytest.mark.parametrize("epi1d", [False, True])
-def test_klt_pyr_climb_matches_plain_version(dev, wpf_default, wpf, epi1d):
+def test_klt_pyr_climb_matches_plain_version(dev, epi1d):
     """The fused climb, forward and bidirectional, with features 1-2 px from
-    every border, for each warps-per-feature layout."""
-    KK.WARPS_PER_FEATURE["klt_pyr"] = wpf
+    every border."""
     a, b = _pair(dev, shift=(3, 0) if epi1d else (3, -2))
     imgs0, imgs1 = list(build_pyramid(a, 3)), list(build_pyramid(b, 3))
     p0 = border_features(dev)
@@ -165,11 +156,9 @@ def test_klt_pyr_climb_matches_plain_version(dev, wpf_default, wpf, epi1d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("wpf", [1, 2, 4])
-def test_klt_pyr_restages_the_target_box(dev, wpf_default, wpf):
+def test_klt_pyr_restages_the_target_box(dev):
     """Seeds 6-10 px from the answer at one level: Gauss-Newton walks out of
     the first staged box (4 px margin) and the kernel re-stages it."""
-    KK.WARPS_PER_FEATURE["klt_pyr"] = wpf
     a, b = _pair(dev, shift=(2, -1), seed=41)
     p0 = _grid(dev, margin=24, n=12)
     rng = np.random.default_rng(4)
@@ -186,10 +175,8 @@ def test_klt_pyr_restages_the_target_box(dev, wpf_default, wpf):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("wpf", [1, 2, 4])
 @pytest.mark.parametrize("s", [0.5, 2.0])
-def test_klt_scale_at_the_clip_limits(dev, wpf_default, wpf, s):
-    KK.WARPS_PER_FEATURE["klt_scale"] = wpf
+def test_klt_scale_at_the_clip_limits(dev, s):
     a, b = _pair(dev, shift=(2, -1))
     p0 = border_features(dev)
     valid = torch.ones(len(p0), dtype=torch.bool, device=dev)

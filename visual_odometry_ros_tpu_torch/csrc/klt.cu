@@ -12,27 +12,34 @@
 // track_pyr_ref, track_pyr_bidir_ref and track_scale_ref in
 // ops/klt_kernels.py; this file implements exactly those.
 //
-// What bounds it on this card: operations, on paper. A level-0 climb step at
-// N = 1024 with 21x21 windows is at most ~1024 * 441 * (60 + 16 * 20) FLOP
-// ~ 0.17 GFLOP (2.6 us at 67 TFLOP/s fp32); its two 1241x376 images are
-// 3.7 MB (1.1 us at 3.35 TB/s). What held the first version at a few per
-// cent of that bound was latency: every Gauss-Newton iteration was a chain
-// of 17 bilinear gathers per lane straight from L2, then a shuffle
-// reduction whose result decides the next gather's address, with only ~8
-// warps resident per SM to hide it.
+// What bounds it on this card: operations, on paper. Per window pixel a
+// template costs ~159 fp32 operations, a Gauss-Newton step ~29 and the
+// final residual ~28 (chip_smoke.py OPS_PER_PX counts them from this file);
+// the main path's 3-level climb at N = 1024 needs ~0.44 G of them for its
+// data (6.6 us at 67 TFLOP/s), its six images 4.7 MB (1.4 us at
+// 3.35 TB/s). In practice it is latency: an iteration is a dependent chain
+// (sample the window, reduce over the block, solve, move the estimate) of
+// ~200 instructions per warp, one feature's chain cannot go faster than
+// one warp per scheduler executes it, and N = 1024 features give each SM only
+// ~8 blocks to interleave. The first version sampled straight from L2 with
+// one warp per feature (~8 warps per SM) and reached a few per cent of the
+// bound; PERF.md has the times of both.
 //
 // What the design does about it:
-//   - one block per feature, with 1, 2 or 4 warps (WPF) splitting the
-//     window's pixels: N = 1024 features fill up to 32 warps of each SM
-//     instead of 8; partial sums cross warps through shared memory, in a
-//     fixed order, so every thread holds bit-identical sums and all exits
-//     are block-uniform;
+//   - one block per feature, with kWarps = 4 warps splitting the window's
+//     pixels (of 1, 2 and 4 warps per feature, 4 was the fastest at
+//     N = 512 and 1024): N = 1024 features fill up to 32 warps of each SM
+//     instead of 8 and each warp's chain is shorter; partial sums cross
+//     warps through shared memory, in a fixed order, so every thread holds
+//     bit-identical sums and all exits are block-uniform;
 //   - each level stages the feature's neighbourhood in shared memory with
-//     cp.async row copies: the template's source box (the 4x4
-//     Scharr/bilinear stencil ring around the window) once, then a target
+//     cp.async row copies, both boxes in one batch: the template's source
+//     box (the window plus the 4x4 Scharr/bilinear stencil ring), whose
+//     Scharr gradients are then computed once per grid point, and a target
 //     box of the window plus a 4 px margin around the current estimate.
-//     A Gauss-Newton iteration samples shared memory, not L2. The box is
-//     re-staged only when the estimate walks out of it. Every staged
+//     A Gauss-Newton iteration samples shared memory, not L2, without a
+//     per-pixel branch where the window lies inside the image. The target
+//     box is re-staged only when the estimate walks out of it. Every staged
 //     coordinate is clamped into the image (edge replication is exact; TMA
 //     would fill zeros), and a read that falls outside the box goes to
 //     global memory, so the box never changes a value, only where it is read;
@@ -68,7 +75,6 @@ struct PyrArgs {
   float eps;
   float min_eig;
   int epi1d;
-  int wpf;  // warps per feature: 1, 2 or 4
   float* p1_out;
   float* err_out;
   unsigned char* live_out;
@@ -79,6 +85,7 @@ struct PyrArgs {
 
 namespace {
 
+constexpr int kWarps = 4;                    // warps per feature (one block each)
 constexpr int kMaxS = 23;                    // window side, radius <= 11
 constexpr int kMaxP = kMaxS * kMaxS;         // 529 patch pixels
 constexpr int kMargin = 4;                   // target box margin, px per side
@@ -86,7 +93,7 @@ constexpr int kMaxBank = (kMaxS + 2) * (kMaxS + 2);  // scale template + 1 px ri
 // Box sides: ceil(2e) + 5 + 2 * margin for a half-extent e (see stage()).
 constexpr int kTplSide = (kMaxS - 1) + 5;                       // 27: template box (e = r)
 constexpr int kLevelSide = (kMaxS - 1) + 5 + 2 * kMargin;        // 35: target box (e = r)
-constexpr int kScaleTplSide = 2 * (kMaxS + 1) + 5;               // 53: scale bank source (e = 2(r+1))
+constexpr int kScaleTplSide = 2 * (kMaxS + 1) + 5;               // 53: scale bank (e = 2(r+1))
 constexpr int kScaleSide = 2 * (kMaxS - 1) + 5 + 2 * kMargin;    // 57: scale target (e = 2r)
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -95,39 +102,29 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int WPF>
-__device__ __forceinline__ void block_sync() {
-  if (WPF == 1)
-    __syncwarp();
-  else
-    __syncthreads();
-}
-
 // Sums NV values over the block. Every thread gets the same bits: warps
 // reduce by xor butterfly, then every thread adds the warps' partials in
-// warp order. `red` holds two [WPF][4] buffers used in turn, so one
+// warp order. `red` holds two [kWarps][4] buffers used in turn, so one
 // barrier per reduction suffices.
-template <int WPF, int NV>
+template <int NV>
 __device__ __forceinline__ void block_sum(float (&v)[NV], float* red, int& par) {
 #pragma unroll
   for (int q = 0; q < NV; ++q) v[q] = warp_sum(v[q]);
-  if (WPF > 1) {
-    const int warp = threadIdx.x >> 5;
-    float* r = red + par * (WPF * 4);
-    if ((threadIdx.x & 31) == 0) {
+  const int warp = threadIdx.x >> 5;
+  float* r = red + par * (kWarps * 4);
+  if ((threadIdx.x & 31) == 0) {
 #pragma unroll
-      for (int q = 0; q < NV; ++q) r[warp * 4 + q] = v[q];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      float t = r[q];
-#pragma unroll
-      for (int w = 1; w < WPF; ++w) t += r[w * 4 + q];
-      v[q] = t;
-    }
-    par ^= 1;
+    for (int q = 0; q < NV; ++q) r[warp * 4 + q] = v[q];
   }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < NV; ++q) {
+    float t = r[q];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) t += r[w * 4 + q];
+    v[q] = t;
+  }
+  par ^= 1;
 }
 
 __device__ __forceinline__ int floor_i(float x) {
@@ -234,40 +231,38 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // filling it: cp.async row copies by the block's warps. land() waits for
 // them. Callers put a barrier before it when the box held data that may
 // still be read.
-template <int WPF>
-__device__ __forceinline__ void issue(Box& b, float cx, float cy, float e, int margin, int max_side) {
+__device__ __forceinline__ void start_fill(Box& b, float cx, float cy, float e, int margin,
+                                           int max_side) {
   const int side = min((int)ceilf(2.0f * e) + 5 + 2 * margin, max_side);
   b.side = side;
   b.x0 = max(0, min(floor_i(cx - e) - 1 - margin, b.W - side));
   b.y0 = max(0, min(floor_i(cy - e) - 1 - margin, b.H - side));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int a = warp; a < side; a += WPF) {
+  for (int a = warp; a < side; a += kWarps) {
     const float* row = b.img + (size_t)min(b.y0 + a, b.H - 1) * b.W;
     float* dst = b.s + a * side;
     for (int c = lane; c < side; c += 32) cp_async4(dst + c, row + min(b.x0 + c, b.W - 1));
   }
 }
 
-template <int WPF>
 __device__ __forceinline__ void land() {
   cp_async_wait_all();
-  block_sync<WPF>();
+  __syncthreads();
 }
 
-template <int WPF>
-__device__ __forceinline__ void stage(Box& b, float cx, float cy, float e, int margin, int max_side) {
-  issue<WPF>(b, cx, cy, e, margin, max_side);
-  land<WPF>();
+__device__ __forceinline__ void stage(Box& b, float cx, float cy, float e, int margin,
+                                      int max_side) {
+  start_fill(b, cx, cy, e, margin, max_side);
+  land();
 }
 
 // Scharr gradients on the grid points (a, c) in [1, side-2]^2 of a staged
 // box, into gx / gy (same indexing as the box): the values level_template()
 // computes there, each once instead of once per template pixel that reads it.
-template <int WPF>
 __device__ __forceinline__ void box_gradients(const Box& b, float* gx, float* gy) {
   const int side = b.side, n = side - 2;
   const float* s = b.s;
-  for (int idx = threadIdx.x; idx < n * n; idx += 32 * WPF) {
+  for (int idx = threadIdx.x; idx < n * n; idx += 32 * kWarps) {
     const int a = 1 + idx / n, c = 1 + idx - (idx / n) * n;
     // Image rows/cols y0 + a +- 1, clamped into the image (the box origin
     // is in the image, so only the far side can clamp).
@@ -339,14 +334,13 @@ __device__ __forceinline__ void level_template(const Box& bx, float u, float v, 
 }
 
 // The template of one feature at one level, spread over the block: pixel
-// idx = threadIdx.x + 32 * WPF * k of the (2r+1)^2 window lives in slot k
+// idx = threadIdx.x + 32 * kWarps * k of the (2r+1)^2 window lives in slot k
 // of its thread's registers. A slot past the window holds offset 0, zero
 // template and gradients, and a clear mask bit, so the sampling loops run
 // every slot without a branch (the slots' latencies overlap) and such a
 // slot adds exactly 0.
-template <int WPF>
 struct Patch {
-  static constexpr int kPer = (kMaxP + 32 * WPF - 1) / (32 * WPF);
+  static constexpr int kPer = (kMaxP + 32 * kWarps - 1) / (32 * kWarps);
   float T[kPer], GX[kPer], GY[kPer], OU[kPer], OV[kPer];
   unsigned m0;  // bit k: template pixel of slot k inside img0
   float gxx, gxy, gyy, npix;
@@ -355,9 +349,10 @@ struct Patch {
 // Masked IC Gauss-Newton from (px, py), target sampled at p + s * offset
 // (s = 1 for the plain level). Returns in place. `tb` is the target box,
 // already staged around (px, py) with half-extent e.
-template <int WPF, bool EPI1D>
-__device__ __forceinline__ void gn_loop(const Patch<WPF>& pt, Box& tb, float e, int max_side, float s,
-                        int iters, float eps2, float& px, float& py, float* red, int& par) {
+template <bool EPI1D>
+__device__ __forceinline__ void gn_loop(const Patch& pt, Box& tb, float e, int max_side, float s,
+                                        int iters, float eps2, float& px, float& py, float* red,
+                                        int& par) {
   float inv_gxx = 0.0f, inv_det = 0.0f;
   if (EPI1D) {
     inv_gxx = 1.0f / (pt.gxx < 1e-12f ? 1e-12f : pt.gxx);
@@ -367,13 +362,13 @@ __device__ __forceinline__ void gn_loop(const Patch<WPF>& pt, Box& tb, float e, 
   }
   for (int it = 0; it < iters; ++it) {
     if (!tb.covers(px, py, e)) {  // block-uniform
-      block_sync<WPF>();
-      stage<WPF>(tb, px, py, e, kMargin, max_side);
+      __syncthreads();
+      stage(tb, px, py, e, kMargin, max_side);
     }
     float acc[2] = {0.0f, 0.0f};
     if (tb.interior(px, py, e)) {  // block-uniform: no clamp, every target pixel inside
 #pragma unroll
-      for (int k = 0; k < Patch<WPF>::kPer; ++k) {
+      for (int k = 0; k < Patch::kPer; ++k) {
         const float I = tb.bilerp_in(px + s * pt.OU[k], py + s * pt.OV[k]);
         const float r = (pt.T[k] - I) * (((pt.m0 >> k) & 1u) ? 1.0f : 0.0f);
         acc[0] += pt.GX[k] * r;
@@ -381,7 +376,7 @@ __device__ __forceinline__ void gn_loop(const Patch<WPF>& pt, Box& tb, float e, 
       }
     } else {
 #pragma unroll
-      for (int k = 0; k < Patch<WPF>::kPer; ++k) {
+      for (int k = 0; k < Patch::kPer; ++k) {
         const float u = px + s * pt.OU[k], v = py + s * pt.OV[k];
         const float I = tb.bilerp(u, v);
         const float w = (((pt.m0 >> k) & 1u) && inside(u, v, tb.H, tb.W)) ? 1.0f : 0.0f;
@@ -390,7 +385,7 @@ __device__ __forceinline__ void gn_loop(const Patch<WPF>& pt, Box& tb, float e, 
         acc[1] += pt.GY[k] * r;
       }
     }
-    block_sum<WPF, 2>(acc, red, par);
+    block_sum<2>(acc, red, par);
     float du, dv;
     if (EPI1D) {
       du = acc[0] * inv_gxx;
@@ -406,39 +401,39 @@ __device__ __forceinline__ void gn_loop(const Patch<WPF>& pt, Box& tb, float e, 
 }
 
 // Mean absolute residual at (px, py) over pixels valid in both images.
-template <int WPF>
-__device__ __forceinline__ float final_err(const Patch<WPF>& pt, Box& tb, float e, int max_side, float s,
-                           float px, float py, float* red, int& par) {
+__device__ __forceinline__ float final_err(const Patch& pt, Box& tb, float e, int max_side,
+                                           float s, float px, float py, float* red, int& par) {
   if (!tb.covers(px, py, e)) {
-    block_sync<WPF>();
-    stage<WPF>(tb, px, py, e, kMargin, max_side);
+    __syncthreads();
+    stage(tb, px, py, e, kMargin, max_side);
   }
   float acc[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int k = 0; k < Patch<WPF>::kPer; ++k) {
+  for (int k = 0; k < Patch::kPer; ++k) {
     const float u = px + s * pt.OU[k], v = py + s * pt.OV[k];
     const float I = tb.bilerp(u, v);
     const float w = (((pt.m0 >> k) & 1u) && inside(u, v, tb.H, tb.W)) ? 1.0f : 0.0f;
     acc[0] += fabsf(pt.T[k] - I) * w;
     acc[1] += w;
   }
-  block_sum<WPF, 2>(acc, red, par);
+  block_sum<2>(acc, red, par);
   return acc[0] / fmaxf(acc[1], 1.0f);
 }
 
 // Template Hessian, valid-pixel count and the gates.
-template <int WPF, bool EPI1D>
-__device__ __forceinline__ bool hessian_gates(Patch<WPF>& pt, int S, float min_eig, float* red, int& par) {
+template <bool EPI1D>
+__device__ __forceinline__ bool hessian_gates(Patch& pt, int S, float min_eig, float* red,
+                                              int& par) {
   float h[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int k = 0; k < Patch<WPF>::kPer; ++k) {
+  for (int k = 0; k < Patch::kPer; ++k) {
     const float w = ((pt.m0 >> k) & 1u) ? 1.0f : 0.0f;
     h[0] += pt.GX[k] * pt.GX[k] * w;
     h[1] += pt.GX[k] * pt.GY[k] * w;
     h[2] += pt.GY[k] * pt.GY[k] * w;
     h[3] += w;
   }
-  block_sum<WPF, 4>(h, red, par);
+  block_sum<4>(h, red, par);
   pt.gxx = h[0];
   pt.gxy = h[1];
   pt.gyy = h[2];
@@ -448,29 +443,29 @@ __device__ __forceinline__ bool hessian_gates(Patch<WPF>& pt, int S, float min_e
     eig_ok = pt.gxx / pt.npix > min_eig;
   } else {
     const float tr = pt.gxx + pt.gyy;
-    const float dd = sqrtf(fmaxf((pt.gxx - pt.gyy) * (pt.gxx - pt.gyy) + 4.0f * pt.gxy * pt.gxy, 0.0f));
+    const float d = pt.gxx - pt.gyy;
+    const float dd = sqrtf(fmaxf(d * d + 4.0f * pt.gxy * pt.gxy, 0.0f));
     eig_ok = 0.5f * (tr - dd) / pt.npix > min_eig;
   }
   return eig_ok && pt.npix > 0.5f * (float)(S * S);
 }
 
 // Shared memory of one klt_pyr block.
-template <int WPF>
-struct SmemT {
+struct Smem {
   float tpl[kTplSide * kTplSide];    // template source box
   float gx[kTplSide * kTplSide];     // its Scharr gradients
   float gy[kTplSide * kTplSide];
   float tgt[kLevelSide * kLevelSide];  // target box
-  float red[2 * WPF * 4];              // block_sum partials
+  float red[2 * kWarps * 4];              // block_sum partials
 };
 
 // One pyramid level of one feature (track_level_ref): template at (tx, ty)
 // in img0, estimate (px, py) in img1 updated in place when processed.
-template <int WPF, bool EPI1D>
+template <bool EPI1D>
 __device__ __forceinline__ void level_pass(const float* img0, const float* img1, int H, int W,
                                            float tx, float ty, float& px, float& py, bool valid,
                                            int radius, int iters, float eps2, float min_eig,
-                                           bool want_err, SmemT<WPF>& sm, int& par, bool& proc, bool& ok,
+                                           bool want_err, Smem& sm, int& par, bool& proc, bool& ok,
                                            float& err) {
   const int S = 2 * radius + 1, P = S * S;
   const float e = (float)radius;
@@ -479,20 +474,20 @@ __device__ __forceinline__ void level_pass(const float* img0, const float* img1,
   err = 0.0f;
   if (!proc) return;
 
-  block_sync<WPF>();  // the boxes may still be read by the previous pass
+  __syncthreads();  // the boxes may still be read by the previous pass
   Box b{sm.tpl, img0, H, W, 0, 0, 0};
   Box t{sm.tgt, img1, H, W, 0, 0, 0};
-  issue<WPF>(b, tx, ty, e, 0, kTplSide);  // template source box
-  issue<WPF>(t, px, py, e, kMargin, kLevelSide);  // target box
-  land<WPF>();
-  box_gradients<WPF>(b, sm.gx, sm.gy);
-  block_sync<WPF>();
-  Patch<WPF> pt;
+  start_fill(b, tx, ty, e, 0, kTplSide);  // template source box
+  start_fill(t, px, py, e, kMargin, kLevelSide);  // target box
+  land();
+  box_gradients(b, sm.gx, sm.gy);
+  __syncthreads();
+  Patch pt;
   pt.m0 = 0u;
   const int TB = b.side;
 #pragma unroll
-  for (int k = 0; k < Patch<WPF>::kPer; ++k) {
-    const int idx = threadIdx.x + 32 * WPF * k;
+  for (int k = 0; k < Patch::kPer; ++k) {
+    const int idx = threadIdx.x + 32 * kWarps * k;
     pt.T[k] = pt.GX[k] = pt.GY[k] = pt.OU[k] = pt.OV[k] = 0.0f;
     if (idx < P) {
       const int i = idx / S, j = idx - (idx / S) * S;
@@ -514,19 +509,20 @@ __device__ __forceinline__ void level_pass(const float* img0, const float* img1,
       if (inside(u, v, H, W)) pt.m0 |= 1u << k;
     }
   }
-  const bool act = hessian_gates<WPF, EPI1D>(pt, S, min_eig, sm.red, par);
-  if (act) gn_loop<WPF, EPI1D>(pt, t, e, kLevelSide, 1.0f, iters, eps2, px, py, sm.red, par);
-  if (want_err) err = final_err<WPF>(pt, t, e, kLevelSide, 1.0f, px, py, sm.red, par);
+  const bool act = hessian_gates<EPI1D>(pt, S, min_eig, sm.red, par);
+  if (act) gn_loop<EPI1D>(pt, t, e, kLevelSide, 1.0f, iters, eps2, px, py, sm.red, par);
+  if (want_err) err = final_err(pt, t, e, kLevelSide, 1.0f, px, py, sm.red, par);
   ok = act && inside(px, py, H, W);
 }
 
 // The coarse-to-fine climb of ops/klt.py:_pyr_track for one feature.
-template <int WPF, bool EPI1D>
-__device__ __forceinline__ void climb(const float* const* A, const float* const* B, const int* Hs, const int* Ws,
-                      int L, float tx, float ty, float sx, float sy, bool valid, int radius,
-                      int iters, int iters_coarse, float eps2, float min_eig, bool want_err,
-                      float& px, float& py, bool& live, float& err, bool& proc0,
-                      SmemT<WPF>& sm, int& par) {
+template <bool EPI1D>
+__device__ __forceinline__ void climb(const float* const* A, const float* const* B, const int* Hs,
+                                      const int* Ws, int L, float tx, float ty, float sx, float sy,
+                                      bool valid, int radius, int iters, int iters_coarse,
+                                      float eps2, float min_eig, bool want_err, float& px,
+                                      float& py, bool& live, float& err, bool& proc0, Smem& sm,
+                                      int& par) {
   const float top = 1.0f / (float)(1 << (L - 1));  // exact powers of two
   px = sx * top;
   py = sy * top;
@@ -537,7 +533,7 @@ __device__ __forceinline__ void climb(const float* const* A, const float* const*
     const float inv = 1.0f / (float)(1 << lvl);
     float qx = px, qy = py, e;
     bool proc, ok;
-    level_pass<WPF, EPI1D>(A[lvl], B[lvl], Hs[lvl], Ws[lvl], tx * inv, ty * inv, qx, qy, valid,
+    level_pass<EPI1D>(A[lvl], B[lvl], Hs[lvl], Ws[lvl], tx * inv, ty * inv, qx, qy, valid,
                            radius, lvl == 0 ? iters : iters_coarse, eps2, min_eig,
                            want_err && lvl == 0, sm, par, proc, ok, e);
     if (proc) {
@@ -555,9 +551,9 @@ __device__ __forceinline__ void climb(const float* const* A, const float* const*
   }
 }
 
-template <int WPF, bool EPI1D>
-__global__ void __launch_bounds__(32 * WPF, 8) klt_pyr_kernel(const PyrArgs a) {
-  __shared__ SmemT<WPF> sm;
+template <bool EPI1D>
+__global__ void __launch_bounds__(32 * kWarps, 8) klt_pyr_kernel(const PyrArgs a) {
+  __shared__ Smem sm;
   const int f = blockIdx.x;
   int par = 0;
   const float eps2 = a.eps * a.eps;
@@ -565,7 +561,7 @@ __global__ void __launch_bounds__(32 * WPF, 8) klt_pyr_kernel(const PyrArgs a) {
   const bool valid = a.valid[f] != 0;
   float px, py, err;
   bool live, proc;
-  climb<WPF, EPI1D>(a.img0, a.img1, a.H, a.W, a.levels, p0x, p0y, a.p1_init[2 * f],
+  climb<EPI1D>(a.img0, a.img1, a.H, a.W, a.levels, p0x, p0y, a.p1_init[2 * f],
                     a.p1_init[2 * f + 1], valid, a.radius, a.iters, a.iters_coarse, eps2,
                     a.min_eig, true, px, py, live, err, proc, sm, par);
   if (threadIdx.x == 0) {
@@ -578,7 +574,7 @@ __global__ void __launch_bounds__(32 * WPF, 8) klt_pyr_kernel(const PyrArgs a) {
   if (a.back_levels > 0) {
     float bx, by, berr;
     bool live0, bproc;
-    climb<WPF, EPI1D>(a.img1, a.img0, a.H, a.W, a.back_levels, px, py, p0x, p0y, live, a.radius,
+    climb<EPI1D>(a.img1, a.img0, a.H, a.W, a.back_levels, px, py, p0x, p0y, live, a.radius,
                       a.iters, a.iters_coarse, eps2, a.min_eig, false, bx, by, live0, berr, bproc,
                       sm, par);
     if (threadIdx.x == 0) {
@@ -592,8 +588,7 @@ __global__ void __launch_bounds__(32 * WPF, 8) klt_pyr_kernel(const PyrArgs a) {
 // Scale-compensated refinement (track_scale_ref): template resampled at
 // p0 + s*(offset) and Scharr on that resampled grid (bank units); GN in
 // bank units, target sampled at p1 + s*(offset).
-template <int WPF>
-__global__ void __launch_bounds__(32 * WPF, 8)
+__global__ void __launch_bounds__(32 * kWarps, 8)
 klt_scale_kernel(const float* __restrict__ img0, const float* __restrict__ img1, int H, int W,
                  const float* __restrict__ p0, const float* __restrict__ p1_init,
                  const float* __restrict__ scale, const unsigned char* __restrict__ valid, int N,
@@ -602,7 +597,7 @@ klt_scale_kernel(const float* __restrict__ img0, const float* __restrict__ img1,
   __shared__ float src[kScaleTplSide * kScaleTplSide];
   __shared__ float box[kScaleSide * kScaleSide];
   __shared__ float bank[kMaxBank];
-  __shared__ float red[2 * WPF * 4];
+  __shared__ float red[2 * kWarps * 4];
   const int f = blockIdx.x;
   int par = 0;
   const int S = 2 * radius + 1, P = S * S, SB = S + 2;
@@ -619,19 +614,19 @@ klt_scale_kernel(const float* __restrict__ img0, const float* __restrict__ img1,
     // resampled from the edge-replicated image through the staged box.
     Box b{src, img0, H, W, 0, 0, 0};
     Box t{box, img1, H, W, 0, 0, 0};
-    issue<WPF>(b, p0x, p0y, s * (float)(radius + 1), 0, kScaleTplSide);
-    issue<WPF>(t, px, py, e, kMargin, kScaleSide);
-    land<WPF>();
-    for (int idx = threadIdx.x; idx < SB * SB; idx += 32 * WPF) {
+    start_fill(b, p0x, p0y, s * (float)(radius + 1), 0, kScaleTplSide);
+    start_fill(t, px, py, e, kMargin, kScaleSide);
+    land();
+    for (int idx = threadIdx.x; idx < SB * SB; idx += 32 * kWarps) {
       const int i = idx / SB, j = idx - (idx / SB) * SB;
       bank[idx] = b.bilerp(p0x + s * (float)(j - radius - 1), p0y + s * (float)(i - radius - 1));
     }
-    block_sync<WPF>();
-    Patch<WPF> pt;
+    __syncthreads();
+    Patch pt;
     pt.m0 = 0u;
 #pragma unroll
-    for (int k = 0; k < Patch<WPF>::kPer; ++k) {
-      const int idx = threadIdx.x + 32 * WPF * k;
+    for (int k = 0; k < Patch::kPer; ++k) {
+      const int idx = threadIdx.x + 32 * kWarps * k;
       pt.T[k] = pt.GX[k] = pt.GY[k] = pt.OU[k] = pt.OV[k] = 0.0f;
       if (idx < P) {
         const int i = idx / S, j = idx - (idx / S) * S;
@@ -648,9 +643,9 @@ klt_scale_kernel(const float* __restrict__ img0, const float* __restrict__ img1,
         if (inside(p0x + s * pt.OU[k], p0y + s * pt.OV[k], H, W)) pt.m0 |= 1u << k;
       }
     }
-    const bool act = hessian_gates<WPF, false>(pt, S, 0.0f, red, par);
-    if (act) gn_loop<WPF, false>(pt, t, e, kScaleSide, s, iters, eps2, px, py, red, par);
-    err = final_err<WPF>(pt, t, e, kScaleSide, s, px, py, red, par);
+    const bool act = hessian_gates<false>(pt, S, 0.0f, red, par);
+    if (act) gn_loop<false>(pt, t, e, kScaleSide, s, iters, eps2, px, py, red, par);
+    err = final_err(pt, t, e, kScaleSide, s, px, py, red, par);
     ok = act && inside(px, py, H, W);
   }
   if (threadIdx.x == 0) {
@@ -659,15 +654,6 @@ klt_scale_kernel(const float* __restrict__ img0, const float* __restrict__ img1,
     err_out[f] = err;
     ok_out[f] = (unsigned char)ok;
   }
-}
-
-template <int WPF>
-cudaError_t launch_pyr(const PyrArgs& a, cudaStream_t st) {
-  if (a.epi1d)
-    klt_pyr_kernel<WPF, true><<<a.N, 32 * WPF, 0, st>>>(a);
-  else
-    klt_pyr_kernel<WPF, false><<<a.N, 32 * WPF, 0, st>>>(a);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -682,30 +668,21 @@ int klt_pyr_launch(const PyrArgs* a, void* stream) {
   if (a->back_levels > 0 && (a->p0b_out == nullptr || a->live0_out == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (a->wpf) {
-    case 1: return (int)launch_pyr<1>(*a, st);
-    case 2: return (int)launch_pyr<2>(*a, st);
-    case 4: return (int)launch_pyr<4>(*a, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (a->epi1d)
+    klt_pyr_kernel<true><<<a->N, 32 * kWarps, 0, st>>>(*a);
+  else
+    klt_pyr_kernel<false><<<a->N, 32 * kWarps, 0, st>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 int klt_scale_launch(const float* img0, const float* img1, int H, int W, const float* p0,
                      const float* p1_init, const float* scale, const unsigned char* valid,
-                     int N, int radius, int iters, float eps, int wpf, float* p1_out,
-                     float* err_out, unsigned char* ok_out, void* stream) {
+                     int N, int radius, int iters, float eps, float* p1_out, float* err_out,
+                     unsigned char* ok_out, void* stream) {
   if (radius < 1 || 2 * radius + 1 > kMaxS || N < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const float eps2 = eps * eps;
-#define KLT_SCALE_ARGS img0, img1, H, W, p0, p1_init, scale, valid, N, radius, iters, eps2, p1_out, \
-                       err_out, ok_out
-  switch (wpf) {
-    case 1: klt_scale_kernel<1><<<N, 32, 0, st>>>(KLT_SCALE_ARGS); break;
-    case 2: klt_scale_kernel<2><<<N, 64, 0, st>>>(KLT_SCALE_ARGS); break;
-    case 4: klt_scale_kernel<4><<<N, 128, 0, st>>>(KLT_SCALE_ARGS); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef KLT_SCALE_ARGS
+  klt_scale_kernel<<<N, 32 * kWarps, 0, (cudaStream_t)stream>>>(
+      img0, img1, H, W, p0, p1_init, scale, valid, N, radius, iters, eps * eps, p1_out, err_out,
+      ok_out);
   return (int)cudaGetLastError();
 }
 

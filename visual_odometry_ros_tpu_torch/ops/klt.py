@@ -99,6 +99,17 @@ def _track_one_level(img0, gx0, gy0, img1, p0, p1_init, valid, offsets, iters, e
     return p1, live, err
 
 
+def _kernel_args(pyr0, pyr1, L, p0, p1_init, valid):
+    """The first L level images of both pyramids and contiguous point arrays."""
+    return ([pyr0[lvl][0] for lvl in range(L)], [pyr1[lvl][0] for lvl in range(L)],
+            p0.contiguous(), p1_init.contiguous(), valid.contiguous())
+
+
+def _kernel_kw(params: KLTParams, epi1d: bool) -> dict:
+    return dict(radius=params.window_radius, iters=params.iters, iters_coarse=params.iters_coarse,
+                eps=params.eps, min_eig=params.min_eig, epi1d=epi1d)
+
+
 def _pyr_track(pyr0, pyr1, p0, p1_init, valid, params: KLTParams, track_levels: int | None = None,
                epi1d: bool = False):
     """Coarse-to-fine track p0 (level-0 coords) -> p1. `track_levels` limits
@@ -106,13 +117,7 @@ def _pyr_track(pyr0, pyr1, p0, p1_init, valid, params: KLTParams, track_levels: 
     one `klt_pyr` launch for the whole climb."""
     L = min(params.levels, track_levels) if track_levels else params.levels
     if params.use_kernel:
-        return KK.track_pyr(
-            [pyr0[lvl][0] for lvl in range(L)], [pyr1[lvl][0] for lvl in range(L)],
-            p0.contiguous(), p1_init.contiguous(), valid.contiguous(),
-            radius=params.window_radius, iters=params.iters,
-            iters_coarse=params.iters_coarse or params.iters, eps=params.eps,
-            min_eig=params.min_eig, epi1d=epi1d,
-        )
+        return KK.track_pyr(*_kernel_args(pyr0, pyr1, L, p0, p1_init, valid), **_kernel_kw(params, epi1d))
     offsets = _patch_offsets(params.window_radius, p0.device)
     p1 = p1_init / 2.0 ** (L - 1)
     live = valid
@@ -153,11 +158,8 @@ def track_bidirectional_pyr(pyr0, pyr1, p0, p1_prior, valid, params: KLTParams =
     if params.use_kernel:  # both climbs in one klt_pyr launch
         L = params.levels
         p1, live1, err1, p0b, live0 = KK.track_pyr_bidir(
-            [pyr0[lvl][0] for lvl in range(L)], [pyr1[lvl][0] for lvl in range(L)],
-            p0.contiguous(), p1_prior.contiguous(), valid.contiguous(),
-            radius=params.window_radius, iters=params.iters,
-            iters_coarse=params.iters_coarse or params.iters, eps=params.eps,
-            min_eig=params.min_eig, epi1d=epi1d, back_levels=min(L, back_levels) if back_levels else L,
+            *_kernel_args(pyr0, pyr1, L, p0, p1_prior, valid), **_kernel_kw(params, epi1d),
+            back_levels=min(L, back_levels) if back_levels else L,
         )
     else:
         p1, live1, err1 = _pyr_track(pyr0, pyr1, p0, p1_prior, valid, params, epi1d=epi1d)

@@ -63,10 +63,6 @@ MAX_LEVELS = 8  # pyramid levels one klt_pyr launch can climb
 # kernel. The plain versions never touch them.
 LAUNCHES = {"klt_pyr": 0, "klt_scale": 0}
 
-# Warps per feature (one block per feature): 1, 2 or 4. Four is the fastest
-# for both kernels at N = 512 and N = 1024 on an H100 (PERF.md, section 6).
-WARPS_PER_FEATURE = {"klt_pyr": 4, "klt_scale": 4}
-
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "klt.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
@@ -104,7 +100,6 @@ class _PyrArgs(ctypes.Structure):
         ("eps", ctypes.c_float),
         ("min_eig", ctypes.c_float),
         ("epi1d", ctypes.c_int),
-        ("wpf", ctypes.c_int),
         ("p1_out", ctypes.c_void_p),
         ("err_out", ctypes.c_void_p),
         ("live_out", ctypes.c_void_p),
@@ -157,7 +152,7 @@ def build() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.klt_pyr_launch.argtypes = [P, P]
     lib.klt_pyr_launch.restype = I
-    lib.klt_scale_launch.argtypes = [P, P, I, I, P, P, P, P, I, I, I, F, I, P, P, P, P]
+    lib.klt_scale_launch.argtypes = [P, P, I, I, P, P, P, P, I, I, I, F, P, P, P, P]
     lib.klt_scale_launch.restype = I
     BUILD_INFO.update(
         library=str(so),
@@ -457,7 +452,7 @@ def _pyr_launch(imgs0, imgs1, p0, p1_init, valid, radius, iters, iters_coarse, e
         (ctypes.c_int * MAX_LEVELS)(*[t.shape[1] for t in imgs0], *pad),
         L, back_levels, p0.data_ptr(), p1_init.data_ptr(), valid.data_ptr(), N, int(radius),
         int(iters), int(iters_coarse), float(eps), float(min_eig), int(bool(epi1d)),
-        WARPS_PER_FEATURE["klt_pyr"], p1.data_ptr(), err.data_ptr(), live.data_ptr(),
+        p1.data_ptr(), err.data_ptr(), live.data_ptr(),
         None if proc is None else proc.data_ptr(), None if p0b is None else p0b.data_ptr(),
         None if live0 is None else live0.data_ptr(),
     )
@@ -539,7 +534,7 @@ def track_scale(img0, img1, p0, p1_init, scale_change, valid, radius=11, iters=3
         argv = (
             img0.data_ptr(), img1.data_ptr(), H, W, p0.data_ptr(), p1_init.data_ptr(),
             scale_change.data_ptr(), valid.data_ptr(), N, int(radius), int(iters), float(eps),
-            WARPS_PER_FEATURE["klt_scale"], p1.data_ptr(), err.data_ptr(), ok.data_ptr(), stream,
+            p1.data_ptr(), err.data_ptr(), ok.data_ptr(), stream,
         )
         _launch("klt_scale", lib.klt_scale_launch, argv,
                 (img0, img1, p0, p1_init, scale_change, valid, p1, err, ok))
