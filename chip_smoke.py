@@ -100,21 +100,30 @@ N_DIST = 9
 ATE_DIST_BOUND_M = 0.05 * STEP_DIST * (N_DIST - 1)
 
 
-# Bounds (least device time for a call's work): fp32 operations per window
-# pixel of each stage of csrc/klt.cu, counted from its source (add, mul,
-# min/max, floor, compare; a fused multiply-add counts 2), times the pixels
-# this run's data needs (`counts` of the plain versions: templates built,
-# Gauss-Newton steps taken, residuals evaluated), over 67 TFLOP/s; bytes:
-# every input read once and every output written once, over 3.35 TB/s
-# (NVIDIA H100 SXM data sheet, at 700 W).
-OPS_PER_PX = {
-    "template_px": 159,  # edge cell 8, four Scharr grid points 108, three bilinear 27, mask 6, Hessian 10
-    "step_px": 29,  # point 2, edge cell 8, bilinear 9, mask 4, residual 2, two accumulations 4
-    "err_px": 28,  # point 2, edge cell 8, bilinear 9, mask 4, |residual| and sums 5
-    "bank_px": 21,  # point 4, edge cell 8, bilinear 9
-    "scale_template_px": 42,  # Scharr on the bank 24, mask 8, Hessian 10
-    "scale_step_px": 31,  # point 4, then as step_px
-    "scale_err_px": 30,  # point 4, then as err_px
+# Bounds (least device time for a call's work): the fp32 operations the
+# function needs per unit of work (add, mul, min/max, floor, compare; a fused
+# multiply-add counts 2), counted from the plain versions' formulas, not from
+# what one kernel happens to do, times the units this run's data needs
+# (`counts` of the plain versions: templates built, Gauss-Newton steps
+# taken, residuals evaluated), over 67 TFLOP/s; bytes: every input read once
+# and every output written once, over 3.35 TB/s (NVIDIA H100 SXM data sheet,
+# at 700 W). A window's points, cells and masks are separable, so they are
+# counted once per window line (row or column); klt_pyr's offsets are
+# integers, so its window shares one bilinear fraction (weights computed
+# once: a sample is a mul and three FMAs) and its gradients are needed on
+# the (S+1)^2 lattice only. Per-feature work (the 2x2 solve, the stop test,
+# the gates) and Scharr's smoothing ring are left out: under 1% of a call.
+OPS = {
+    "template_px": 31,  # three samples (value, gx, gy) 21, mask 1, Hessian sums 9
+    "lattice_px": 10,  # Scharr gx, gy: a 3-tap smooth 4 and a difference 1 each
+    "step_px": 14,  # sample 7, mask 1, residual 2, two accumulations 4
+    "err_px": 13,  # sample 7, mask 1, |residual| into the sum 4, mask sum 1
+    "line": 7,  # point 1, clamp 2, floor 1, cell clamp 1, inside test 2
+    "bank_px": 9,  # a sample with its own fraction: three lerps
+    "scale_template_px": 20,  # Scharr on the bank 10, mask 1, Hessian sums 9
+    "scale_step_px": 16,  # sample 9, then as step_px
+    "scale_err_px": 15,  # sample 9, then as err_px
+    "scale_line": 9,  # point (FMA) 2, clamp 2, floor 1, cell clamp 1, fraction 1, inside test 2
 }
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -122,7 +131,7 @@ PEAK_BYTES = 3.35e12
 
 def bound(counts: dict, n_bytes: int) -> tuple:
     """(bound_ms, bound_by) of one call from its work counts and bytes."""
-    ops = sum(OPS_PER_PX[k] * v for k, v in counts.items())
+    ops = sum(OPS[k] * v for k, v in counts.items())
     t_ops, t_bytes = ops / PEAK_FP32, n_bytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -262,23 +271,33 @@ def host_us(fn, reps=50):
 
 
 def recorded_launches(fn):
-    """Run fn() once and return the C launcher calls it made, as
-    [(name, fn, argv, keep)]; `keep` holds the tensors behind the pointers."""
+    """Run fn() once. Returns the C launcher calls it made, [(name, c_fn,
+    argv)], and the launch helpers' inputs and outputs: the tensors behind
+    argv's pointers, which the caller holds while it replays argv."""
     from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
 
-    calls = []
-    orig = KK._launch
+    calls, tensors = [], []
+    orig = {k: getattr(KK, k) for k in ("_launch", "_pyr_launch", "_scale_launch")}
 
-    def rec(name, c_fn, argv, keep=()):
-        calls.append((name, c_fn, argv, keep))
-        return orig(name, c_fn, argv, keep)
+    def rec(name, c_fn, argv):
+        calls.append((name, c_fn, argv))
+        return orig["_launch"](name, c_fn, argv)
+
+    def holding(helper):
+        def run(*args):
+            out = orig[helper](*args)
+            tensors.append((args, out))
+            return out
+        return run
 
     KK._launch = rec
+    KK._pyr_launch, KK._scale_launch = holding("_pyr_launch"), holding("_scale_launch")
     try:
         fn()
     finally:
-        KK._launch = orig
-    return calls
+        for k, v in orig.items():
+            setattr(KK, k, v)
+    return calls, tensors
 
 
 def klt_call_sites(pairs, dev):
@@ -354,11 +373,12 @@ def call_site_times(pairs, dev, card):
         counts = {}
         site["plain"](counts)
         b_ms, b_by = bound(counts, site["bytes"])
-        calls = recorded_launches(site["call"])
+        calls, tensors = recorded_launches(site["call"])
         assert len(calls) == 1, f"{name}: {len(calls)} launches per call, expected 1"
         row = {"kernel": calls[0][0], "ms": device_ms([(c[1], c[2]) for c in calls]),
-               "bound_ms": b_ms, "bound_by": b_by, "work_px": counts, "bytes": site["bytes"],
+               "bound_ms": b_ms, "bound_by": b_by, "work": counts, "bytes": site["bytes"],
                "plain_ms": cuda_ms(lambda: site["plain"](None), reps=5, warmup=1)}
+        del tensors  # held until the replays are done
         row["host_us"] = host_us(site["wrapper"])
         row["call_host_us"] = host_us(site["call"])
         row["bound_share"] = b_ms / row["ms"]
@@ -433,28 +453,41 @@ def per_frame_path(frames, device, card):
         return out
 
     vo._keyframe_step = timed_kf
+    replenishes = [0]
+    orig_rep = vo._replenish
+
+    def counted_rep(*a, **kw):
+        replenishes[0] += 1
+        return orig_rep(*a, **kw)
+
+    vo._replenish = counted_rep
     n_plain = N_MAIN - N_TIMED
     KK.reset_launch_counts()
     frame_ms, frame_launches = [], []
     for il, ir in pairs[:n_plain]:
         before = dict(KK.LAUNCHES)
+        replenishes[0] = 0
         sync(device)
         t = time.perf_counter()
         vo.track_stereo_images(il, ir)
         sync(device)
         frame_ms.append((time.perf_counter() - t) * 1e3)
-        frame_launches.append({k: KK.LAUNCHES[k] - before[k] for k in before})
+        frame_launches.append(dict({k: KK.LAUNCHES[k] - before[k] for k in before},
+                                   replenish=replenishes[0]))
     launches = launched("per-frame path")
+    tracked = [dict(n, n_new=s["n_new"], recovered=s.get("recovered", 0))
+               for s, n in zip(vo.stats_log[1:], frame_launches[1:])]
     kinds = {}
-    for s, n in zip(vo.stats_log[1:], frame_launches[1:]):
-        kind = "replenish" if s["n_new"] > 0 else "steady"
-        kinds.setdefault(kind, set()).add(json.dumps(n, sort_keys=True))
+    for n in tracked:
+        kind = "replenish" if n["replenish"] else "steady"
+        kinds.setdefault(kind, set()).add(json.dumps({k: n[k] for k in KK.LAUNCHES}, sort_keys=True))
     print(json.dumps({"klt_launches_per_frame": {k: sorted(v) for k, v in kinds.items()},
-                      "frames": [dict(n, n_new=s["n_new"]) for s, n in zip(vo.stats_log[1:], frame_launches[1:])]}))
-    # One klt_pyr launch each for the track climb and the stereo pass, one
-    # more for a replenish; one klt_scale.
-    for n in frame_launches[1:]:
-        assert n["klt_scale"] == 1 and n["klt_pyr"] in (2, 3), f"KLT launches of a frame: {n}"
+                      "frames": tracked}))
+    # A tracked frame: one klt_pyr launch each for the track climb and the
+    # stereo pass, one more for each replenish it ran; one klt_scale.
+    for n in tracked:
+        assert not n["recovered"], f"recovery fired at {STEP_MAIN} m/frame: {n}"
+        assert n["klt_scale"] == 1 and n["klt_pyr"] == 2 + n["replenish"], f"KLT launches of a frame: {n}"
     steady = [ms for ms, s in zip(frame_ms[3:], vo.stats_log[3:]) if not s["keyframe"]]
     print(f"time steady frame: median {statistics.median(steady):.2f} ms over {len(steady)} frames; "
           f"keyframe step: median {statistics.median(kf_ms[1:] or kf_ms):.2f} ms over "

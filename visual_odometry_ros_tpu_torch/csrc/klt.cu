@@ -12,12 +12,15 @@
 // track_pyr_ref, track_pyr_bidir_ref and track_scale_ref in
 // ops/klt_kernels.py; this file implements exactly those.
 //
-// What bounds it on this card: operations, on paper. Per window pixel a
-// template costs ~159 fp32 operations, a Gauss-Newton step ~29 and the
-// final residual ~28 (chip_smoke.py OPS_PER_PX counts them from this file);
-// the main path's 3-level climb at N = 1024 needs ~0.44 G of them for its
-// data (6.6 us at 67 TFLOP/s), its six images 4.7 MB (1.4 us at
-// 3.35 TB/s). In practice it is latency: an iteration is a dependent chain
+// What bounds it on this card: operations, on paper, for the track climb.
+// The function needs ~31 fp32 operations per window pixel of a template
+// plus ~10 per Scharr lattice point, ~14 per pixel of a Gauss-Newton step
+// and ~13 of the final residual, plus the window's separable rows and
+// columns (chip_smoke.py OPS counts them from the plain versions); the main
+// path's 3-level climb at N = 1024 needs ~0.17 G of them for its data
+// (~2.5 us at 67 TFLOP/s), its six images 4.9 MB (1.5 us at 3.35 TB/s);
+// the one-level stereo pass and klt_scale are bound by their images' bytes
+// (~1.1 us). In practice it is latency: an iteration is a dependent chain
 // (sample the window, reduce over the block, solve, move the estimate) of
 // ~200 instructions per warp, one feature's chain cannot go faster than
 // one warp per scheduler executes it, and N = 1024 features give each SM only

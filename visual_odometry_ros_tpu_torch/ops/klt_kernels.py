@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 import time
@@ -167,9 +168,11 @@ def build() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the semantics the kernels implement)
 # ---------------------------------------------------------------------------
-# `counts`, where given, adds up the window pixels each stage of the kernel
-# works on for these inputs (templates built, Gauss-Newton steps taken,
-# residuals evaluated): what a bound on the kernel's time is counted from.
+# `counts`, where given, adds up the work these inputs need (templates
+# built, Gauss-Newton steps taken, residuals evaluated), in the units a bound
+# on the kernel's time is counted in: window pixels, Scharr lattice points,
+# and window lines (rows plus columns: a window's points, cells and masks
+# are separable, so they are computed once per row and per column).
 
 
 def _count(counts, key, n, per) -> None:
@@ -218,10 +221,12 @@ def _processable(p: torch.Tensor, H: int, W: int, margin) -> torch.Tensor:
 
 
 def _gn_loop(img1, T, gx, gy, w0, p1, offs, step_scale, live, iters, eps, epi1d, gxx, gxy, gyy,
-             counts=None, key="step_px"):
+             counts=None, keys=("step_px", "line")):
     """Masked IC Gauss-Newton: p1 [N, 2]; offs [N or 1, P, 2] target offsets;
-    step_scale [N, 1] maps a solve step to image pixels."""
+    step_scale [N, 1] maps a solve step to image pixels. `keys` name the
+    counts of a step's pixels and lines."""
     H, W = img1.shape
+    S = math.isqrt(T.shape[1])
     if epi1d:
         inv_gxx = 1.0 / torch.where(gxx < 1e-12, 1e-12, gxx)
     else:
@@ -241,7 +246,8 @@ def _gn_loop(img1, T, gx, gy, w0, p1, offs, step_scale, live, iters, eps, epi1d,
             dv = (gxx * by - gxy * bx) * inv_det
         step = torch.stack([du, dv], dim=-1)
         active = (live & ~conv)[:, None]
-        _count(counts, key, active.sum(), T.shape[1])
+        _count(counts, keys[0], active.sum(), S * S)
+        _count(counts, keys[1], active.sum(), 2 * S)
         p1 = p1 + torch.where(active, step_scale * step, 0.0)
         conv = conv | (torch.sum(step * step, dim=-1) < eps * eps)
     pts1 = p1[:, None, :] + offs
@@ -281,9 +287,14 @@ def _level_ref(img0, img1, p0, p1_init, valid, radius, iters, eps, min_eig, epi1
     w0 = _inside(pts0, H, W).to(torch.float32)
     gxx, gxy, gyy, gates = _hessian_gates(gx, gy, w0, S, min_eig, epi1d)
     live = proc & gates
+    # Offsets are integers, so the window shares one bilinear fraction: the
+    # gradients are needed on the (S+1)^2 lattice around it only.
     _count(counts, "template_px", proc.sum(), S * S)
+    _count(counts, "lattice_px", proc.sum(), (S + 1) ** 2)
+    _count(counts, "line", proc.sum(), 2 * S)
     if want_err:
         _count(counts, "err_px", proc.sum(), S * S)
+        _count(counts, "line", proc.sum(), 2 * S)
     ones = torch.ones((p0.shape[0], 1), dtype=torch.float32, device=p0.device)
     p1, err = _gn_loop(img1, T, gx, gy, w0, p1_init, off[None], ones, live, iters, eps, epi1d,
                        gxx, gxy, gyy, counts)
@@ -369,8 +380,10 @@ def track_scale_ref(img0, img1, p0, p1_init, scale_change, valid, radius=11, ite
     _count(counts, "bank_px", proc.sum(), (S + 2) ** 2)
     _count(counts, "scale_template_px", proc.sum(), S * S)
     _count(counts, "scale_err_px", proc.sum(), S * S)
+    # Lines: the bank's, the template mask's and the residual's.
+    _count(counts, "scale_line", proc.sum(), 2 * (S + 2) + 2 * S + 2 * S)
     p1, err = _gn_loop(img1, T, gx, gy, w0, p1_init, offs, s[:, None], live, iters, eps, False,
-                       gxx, gxy, gyy, counts, "scale_step_px")
+                       gxx, gxy, gyy, counts, ("scale_step_px", "scale_line"))
     err = torch.where(proc, err, 0.0)
     return p1, err, live & _inside(p1, H, W)
 
@@ -417,10 +430,8 @@ def _check_common(imgs0, imgs1, p0, p1_init, valid, radius):
     return dev
 
 
-def _launch(name: str, fn, argv: tuple, keep: tuple = ()) -> None:
-    """Call the C launcher `fn(*argv)` and count the launch. `keep` holds
-    the tensors behind argv's pointers (a caller that replays argv keeps
-    them alive)."""
+def _launch(name: str, fn, argv: tuple) -> None:
+    """Call the C launcher `fn(*argv)` and count the launch."""
     rc = fn(*argv)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
@@ -458,9 +469,30 @@ def _pyr_launch(imgs0, imgs1, p0, p1_init, valid, radius, iters, iters_coarse, e
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("klt_pyr", lib.klt_pyr_launch, (ctypes.byref(args), stream),
-                (*imgs0, *imgs1, p0, p1_init, valid, p1, err, live, proc, p0b, live0, args))
+        _launch("klt_pyr", lib.klt_pyr_launch, (ctypes.byref(args), stream))
     return p1, live, err, proc, p0b, live0
+
+
+def _scale_launch(img0, img1, p0, p1_init, scale_change, valid, radius, iters, eps):
+    """One klt_scale launch on CUDA tensors. Returns (p1, err, ok)."""
+    lib = build()
+    dev = p0.device
+    N = p0.shape[0]
+    H, W = img0.shape
+    p1 = torch.empty((N, 2), dtype=torch.float32, device=dev)
+    err = torch.empty((N,), dtype=torch.float32, device=dev)
+    ok = torch.empty((N,), dtype=torch.bool, device=dev)
+    if N == 0:
+        return p1, err, ok
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        argv = (
+            img0.data_ptr(), img1.data_ptr(), H, W, p0.data_ptr(), p1_init.data_ptr(),
+            scale_change.data_ptr(), valid.data_ptr(), N, int(radius), int(iters), float(eps),
+            p1.data_ptr(), err.data_ptr(), ok.data_ptr(), stream,
+        )
+        _launch("klt_scale", lib.klt_scale_launch, argv)
+    return p1, err, ok
 
 
 def track_level(img0, img1, p0, p1_init, valid, radius=10, iters=12, eps=0.03, min_eig=1e-4,
@@ -521,21 +553,4 @@ def track_scale(img0, img1, p0, p1_init, scale_change, valid, radius=11, iters=3
         raise ValueError("scale_change must be on the same device as the images")
     if dev.type == "cpu":
         return track_scale_ref(img0, img1, p0, p1_init, scale_change, valid, radius, iters, eps)
-    lib = build()
-    N = p0.shape[0]
-    H, W = img0.shape
-    p1 = torch.empty((N, 2), dtype=torch.float32, device=dev)
-    err = torch.empty((N,), dtype=torch.float32, device=dev)
-    ok = torch.empty((N,), dtype=torch.bool, device=dev)
-    if N == 0:
-        return p1, err, ok
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        argv = (
-            img0.data_ptr(), img1.data_ptr(), H, W, p0.data_ptr(), p1_init.data_ptr(),
-            scale_change.data_ptr(), valid.data_ptr(), N, int(radius), int(iters), float(eps),
-            p1.data_ptr(), err.data_ptr(), ok.data_ptr(), stream,
-        )
-        _launch("klt_scale", lib.klt_scale_launch, argv,
-                (img0, img1, p0, p1_init, scale_change, valid, p1, err, ok))
-    return p1, err, ok
+    return _scale_launch(img0, img1, p0, p1_init, scale_change, valid, radius, iters, eps)
