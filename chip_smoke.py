@@ -11,14 +11,16 @@ the final line):
      every world below is rendered in one process pool;
   2. build: compiles csrc/klt.cu with nvcc for sm_90a into build/kernels/;
   3. kernels: `klt_pyr` one level at a time (2-D and epi1d, all three
-     pyramid level sizes), as the fused forward climb (N = 1024) and as the
-     bidirectional epi1d climb (N = 512), and `klt_scale` (s = 1, s in
-     [0.9, 1.12], s = 0.5 and s = 2) on KITTI-size corridor frames, each
-     against its plain PyTorch version on the same inputs; then, at the
-     main path's four KLT call sites (track climb, scale, stereo,
-     replenish), one launch per call asserted, device time per launch (C
-     launcher alone, back to back), host time per call, the plain version's
-     time and the bound from this run's work counts;
+     pyramid level sizes), as the fused forward climb (N = 1024), as the
+     bidirectional epi1d climb (N = 512) and as mono's 2-D bidirectional
+     climb (HardSequence 640x480, N = 512, backward over level 0, forward
+     and backward outputs), and `klt_scale` (s = 1, s in [0.9, 1.12],
+     s = 0.5 and s = 2, and mono's 30 iterations with s over [0.25, 4]),
+     each against its plain PyTorch version on the same inputs; then, at
+     the six KLT call sites (stereo track climb, scale, stereo, replenish;
+     mono track, mono scale), one launch per call asserted, device time per
+     launch (C launcher alone, back to back), host time per call, the plain
+     version's time and the bound from this run's work counts;
   4. per-frame path: `StereoVO(cfg, device="cuda")` at the bench.py
      configuration over 1 + 18 frames of the bench corridor at 0.25 m/frame
      through `track_stereo_images`; times steady and keyframe steps and
@@ -33,11 +35,17 @@ the final line):
   7. rectification: the same tracker and map configuration with
      `flagDoUndistortion=True` on the 640x480 plane world rendered through
      radtan-distorted lenses, 1 + 8 frames at 0.22 m/frame through
-     `track_stereo_batch`.
+     `track_stereo_batch`;
+  8. mono path: `MonoVO(cfg, device="cuda")` at scripts/eval_accuracy.py's
+     mono configuration over the first 49 frames of the accuracy sequence:
+     `track_image` until the bootstrap, 6 frames with `timed=True`, then
+     `track_batch`; checks the bootstrap frame, keyframe steps and BA
+     acceptance, sim3 ATE against the JAX package's CPU run
+     (tests/reference_mono_smoke.py) and KLT launches frame by frame.
 Every path is driven with the kernel launch counts set to 0 just before it
 and read just after. The last two lines are the kernel table (launches of
-the serving path) and {"ok": true, "device": ...}. This script imports no
-JAX.
+the serving and mono paths) and {"ok": true, "device": ...}. This script
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -100,6 +108,25 @@ N_DIST = 9
 ATE_DIST_BOUND_M = 0.05 * STEP_DIST * (N_DIST - 1)
 
 
+# Mono path: scripts/eval_accuracy.py:66-84's mono configuration (640x480,
+# fx = fy = 500, N = 512 tracks in 16x10 bins, M = 4096 landmarks, K = 8 ring
+# slots, 3 levels, 15 iterations, kernel leg) on the left images of the first
+# N_MONO frames of ACCURACY.json's sequence (HardSequence fit around
+# varied_trajectory(200, step=0.3), baseline 0.5 m, frame i rendered with
+# frame=i). Schedule: track_image until phase 2, then N_MONO_TIMED frames with
+# timed=True, then track_batch in near-equal chunks of at most MONO_CHUNK.
+# The JAX package on CPU (its jnp leg), same frames and schedule
+# (tests/reference_mono_smoke.py): bootstrap at frame MONO_REF_BOOT, sim3
+# ATE MONO_REF_ATE_M over all N_MONO frames. Bounds: the bootstrap frame
+# within +-2 of it, ATE at most 3x.
+N_MONO = 49
+N_MONO_TIMED = 6
+MONO_PAIR = 20  # frames 20 -> 21: the mono kernel checks and call sites
+MONO_CHUNK = 24
+MONO_REF_BOOT = 12
+MONO_REF_ATE_M = 0.36036
+
+
 # Bounds (least device time for a call's work): the fp32 operations the
 # function needs per unit of work (add, mul, min/max, floor, compare; a fused
 # multiply-add counts 2), counted from the plain versions' formulas, not from
@@ -155,6 +182,34 @@ def bench_config():
     return cfg
 
 
+def mono_config():
+    """scripts/eval_accuracy.py:66-84 (build_mono), kernel leg."""
+    from visual_odometry_ros_tpu_torch.io import VOConfig
+
+    cfg = VOConfig()
+    cfg.cam.fx = cfg.cam.fy = 500.0
+    cfg.cam.cx, cfg.cam.cy = 320.0, 240.0
+    cfg.cam.width, cfg.cam.height = 640, 480
+    cfg.flagDoUndistortion = False
+    cfg.extractor.n_features = 512
+    cfg.extractor.n_bins_u = 16
+    cfg.extractor.n_bins_v = 10
+    cfg.map.landmark_capacity = 4096
+    cfg.keyframe.n_max_keyframes_in_window = 7
+    cfg.keyframe.thres_translation = 1.2
+    cfg.tracker.max_level = 3
+    cfg.tracker.max_iter = 15
+    cfg.tracker.use_pallas = "auto"
+    return cfg
+
+
+def mono_chunks(start: int, stop: int = N_MONO) -> list:
+    """[(a, b), ...] near-equal track_batch chunks of at most MONO_CHUNK frames."""
+    n = -(-(stop - start) // MONO_CHUNK)
+    edges = [start + round(k * (stop - start) / n) for k in range(n + 1)] if n else [start]
+    return list(zip(edges[:-1], edges[1:]))
+
+
 @functools.lru_cache(maxsize=None)
 def _world(kind: str):
     """(world, poses) of one run: "main" is the corridor at 0.25 m/frame,
@@ -167,6 +222,11 @@ def _world(kind: str):
         forward_trajectory,
     )
 
+    if kind == "mono":
+        from visual_odometry_ros_tpu_torch.io.synthetic import HardSequence, varied_trajectory
+
+        poses = varied_trajectory(200, step=0.3)
+        return HardSequence(poses_T_wc=poses, baseline=0.5), poses[:N_MONO]
     if kind == "distorted":
         plane = PlaneSequence(z0=14.0, sx=0.3, sy=0.15, baseline=0.5)
         return (DistortedStereoSequence(plane, np.asarray(DIST)),
@@ -181,19 +241,22 @@ def _world(kind: str):
 
 
 def render_pair(job):
-    """Frame i of world `kind` as camera-native uint8 (left, right)."""
+    """Frame i of world `kind`: camera-native uint8 (left, right); for "mono"
+    the float32 left image alone, as scripts/eval_accuracy.py feeds it."""
     kind, i = job
     world, poses = _world(kind)
+    if kind == "mono":
+        return world.render(np.linalg.inv(poses[i].astype(np.float64)), frame=i), None
     l, r = world.stereo_pair(poses[i].astype(np.float64))
     return np.clip(l, 0, 255).astype(np.uint8), np.clip(r, 0, 255).astype(np.uint8)
 
 
-def make_frames():
-    """{kind: (uint8 left [n, H, W], uint8 right, poses)} for every run."""
+def make_frames(sizes=None):
+    """{kind: (left [n, H, W], right or None, poses)} for every run."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
-    sizes = {"main": N_MAIN, "bench": N_BENCH, "distorted": N_DIST}
+    sizes = sizes or {"main": N_MAIN, "bench": N_BENCH, "distorted": N_DIST, "mono": N_MONO}
     jobs = [(k, i) for k, n in sizes.items() for i in range(n)]
     workers = max(1, min(8, os.cpu_count() or 1))
     with ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn")) as ex:
@@ -201,7 +264,8 @@ def make_frames():
     out = {}
     for k, n in sizes.items():
         mine = [p for (kind, _), p in zip(jobs, pairs) if kind == k]
-        out[k] = (np.stack([l for l, _ in mine]), np.stack([r for _, r in mine]), _world(k)[1][:n])
+        right = None if k == "mono" else np.stack([r for _, r in mine])
+        out[k] = (np.stack([l for l, _ in mine]), right, _world(k)[1][:n])
     return out
 
 
@@ -300,6 +364,23 @@ def recorded_launches(fn):
     return calls, tensors
 
 
+def _img_bytes(levels) -> int:
+    """Both pyramids' level images, read once."""
+    return sum(2 * x.numel() * 4 for x in levels)
+
+
+def _pt_bytes(n: int, out: int) -> int:
+    """p0, the seed and valid read once, `out` bytes per feature written."""
+    return n * (8 + 8 + 1) + n * out
+
+
+def _feature_grid(H: int, W: int, rows: int, cols: int, dev):
+    import torch
+
+    gy, gx = np.meshgrid(np.linspace(12, H - 13, rows), np.linspace(12, W - 13, cols), indexing="ij")
+    return torch.as_tensor(np.stack([gx.ravel(), gy.ravel()], -1), dtype=torch.float32, device=dev)
+
+
 def klt_call_sites(pairs, dev):
     """The main path's KLT call sites at the bench configuration, on frames
     10 -> 11 of the 0.25 m/frame corridor (N = 1024; 512 for replenish):
@@ -333,8 +414,7 @@ def klt_call_sites(pairs, dev):
     half_s = (half - disp).contiguous()
     vh = valid[: len(half)]
     r, it, ic, itx = kp.window_radius, kp.iters, kp.iters_coarse, kpe.iters
-    img_bytes = lambda lv: sum(2 * x.numel() * 4 for x in lv)  # noqa: E731
-    pt_bytes = lambda n, out: n * (8 + 8 + 1) + n * out  # noqa: E731
+    img_bytes, pt_bytes = _img_bytes, _pt_bytes
     track = (lv_a, lv_b, p, seed, valid, r, it, ic, kp.eps, kp.min_eig)
     stereo = (lv_b[:1], lv_r[:1], p1, p1s, ok, r, itx, itx, kpe.eps, kpe.min_eig, True)
     replenish = (lv_b, lv_r, half, half_s, vh, r, itx, itx, kpe.eps, kpe.min_eig, True, 1)
@@ -362,12 +442,55 @@ def klt_call_sites(pairs, dev):
     }
 
 
-def call_site_times(pairs, dev, card):
-    """For each main-path KLT call site: its kernel launches (exactly one),
-    device ms per call (the C launcher alone, replayed back to back), host
-    us per call of the kernel's wrapper and of the call site, the plain
-    version's ms, and the bound from this run's work counts."""
-    sites = klt_call_sites(pairs, dev)
+def mono_call_sites(imgs, dev):
+    """MonoVO's two KLT call sites at the mono configuration, on frames
+    MONO_PAIR -> MONO_PAIR + 1 of the mono sequence (N = 512): the steady
+    track (the 2-D bidirectional climb from a prior seed, fb_scale 5,
+    backward over level 0; the init track is the same launch seeded at p0)
+    and the 30-iteration scale refinement (s in [0.9, 1.12], the range of
+    forward motion's depth ratios). Same layout as `klt_call_sites`."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.models.mono_vo import MonoVO
+    from visual_odometry_ros_tpu_torch.ops import klt as KLT
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    vo = MonoVO(mono_config(), device=dev)
+    img_a = torch.as_tensor(imgs[MONO_PAIR], dtype=torch.float32, device=dev)
+    img_b = torch.as_tensor(imgs[MONO_PAIR + 1], dtype=torch.float32, device=dev)
+    pyr_a, pyr_b = vo._build_pyr(img_a), vo._build_pyr(img_b)
+    lv_a, lv_b = [lv[0] for lv in pyr_a], [lv[0] for lv in pyr_b]
+    p = _feature_grid(*img_a.shape, 16, 32, dev)
+    rng = np.random.default_rng(1)
+    seed = (p + torch.as_tensor(rng.uniform(-2, 2, p.shape), dtype=torch.float32, device=dev)).contiguous()
+    sc = torch.as_tensor(rng.uniform(0.9, 1.12, len(p)), dtype=torch.float32, device=dev)
+    valid = torch.ones(len(p), dtype=torch.bool, device=dev)
+    kp = vo.klt_params
+    p1, ok = KLT.track_bidirectional_pyr(pyr_a, pyr_b, p, seed, valid, kp, fb_scale=5.0, back_levels=1)
+    p1 = p1.contiguous()
+    track = (lv_a, lv_b, p, seed, valid, kp.window_radius, kp.iters, kp.iters_coarse, kp.eps, kp.min_eig,
+             False, 1)
+    scale = (img_a, img_b, p, p1, sc, ok, 11, 30)
+    return {
+        "mono_track": dict(
+            call=lambda: KLT.track_bidirectional_pyr(pyr_a, pyr_b, p, seed, valid, kp, fb_scale=5.0,
+                                                     back_levels=1),
+            wrapper=lambda: KK.track_pyr_bidir(*track),
+            plain=lambda c: KK.track_pyr_bidir_ref(*track, counts=c),
+            bytes=_img_bytes(lv_a) + _pt_bytes(len(p), 8 + 4 + 1 + 8 + 1)),
+        "mono_scale": dict(
+            call=lambda: KLT.track_with_scale(img_a, img_a, img_a, img_b, p, p1, sc, ok, use_kernel=True),
+            wrapper=lambda: KK.track_scale(*scale), plain=lambda c: KK.track_scale_ref(*scale, counts=c),
+            bytes=2 * img_a.numel() * 4 + _pt_bytes(len(p), 4 + 8 + 4 + 1)),
+    }
+
+
+def call_site_times(sites, card):
+    """For each KLT call site of `sites` ({name: {call, wrapper, plain,
+    bytes}}): its kernel launches (exactly one), device ms per call (the C
+    launcher alone, replayed back to back), host us per call of the
+    kernel's wrapper and of the call site, the plain version's ms, and the
+    bound from this run's work counts."""
     out = {}
     for name, site in sites.items():
         counts = {}
@@ -607,6 +730,93 @@ def rectification_path(frames, device, card):
     assert ate <= ATE_DIST_BOUND_M, f"ATE {ate:.4f} m above bound {ATE_DIST_BOUND_M:.4f} m"
 
 
+def mono_path(frames, device, card) -> dict:
+    """Phase 8: MonoVO at the mono configuration over the first N_MONO frames
+    of the accuracy sequence: track_image until phase 2, N_MONO_TIMED frames
+    with timed=True, then track_batch in chunks of at most MONO_CHUNK.
+    Returns its kernel launch counts."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.io import ate_rmse
+    from visual_odometry_ros_tpu_torch.models.mono_vo import MonoVO
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    imgs, _, poses = frames["mono"]
+    vo = MonoVO(mono_config(), device=device)
+    KK.reset_launch_counts()
+    per_frame = []
+
+    def step(i, timed=False):
+        before = dict(KK.LAUNCHES)
+        sync(device)
+        t = time.perf_counter()
+        _, st = vo.track_image(imgs[i], timed=timed)
+        sync(device)
+        per_frame.append(dict({k: KK.LAUNCHES[k] - before[k] for k in before}, frame=i, phase=st["phase"],
+                              ms=(time.perf_counter() - t) * 1e3, keyframe=st["keyframe"],
+                              fallback=st.get("used_fallback", False), recovered=st.get("recovered", 0)))
+        return st
+
+    i = 0
+    while vo.phase != 2:
+        assert i < N_MONO - N_MONO_TIMED - 1, "mono never bootstrapped"
+        step(i)
+        i += 1
+    boot = i - 1
+    stage_ms = [step(j, timed=True)["stage_ms"] for j in range(i, i + N_MONO_TIMED)]
+    i += N_MONO_TIMED
+    batches = []
+    for a, b in mono_chunks(i):
+        before = dict(KK.LAUNCHES)
+        sync(device)
+        t = time.perf_counter()
+        vo.track_batch(imgs[a:b])
+        sync(device)
+        batches.append(dict({k: KK.LAUNCHES[k] - before[k] for k in before}, frames=b - a,
+                            s=time.perf_counter() - t))
+    on_card = torch.device(device).type == "cuda"
+    launches = launched("mono path") if on_card else dict(KK.LAUNCHES)
+
+    log = vo.stats_log
+    traj = np.stack(vo.trajectory)
+    assert traj.shape == (N_MONO, 4, 4) and np.isfinite(traj).all(), "non-finite mono trajectory"
+    ate = ate_rmse(traj, poses, align="sim3")
+    kfs = [s for s in log if s["phase"] == "steady" and s["keyframe"]]
+    n_ba_ok = sum(1 for s in kfs if s["ba_err"] is not None and not s["ba_rejected"])
+    keys = ("time_track", "time_1p", "time_pose", "time_new", "time_5p", "time_ba")
+    med = {k: statistics.median(d[k] for d in stage_ms if k in d) for k in keys if any(k in d for d in stage_ms)}
+    steady_ms = [f["ms"] for f in per_frame if f["phase"] == "steady"]
+    print(json.dumps({
+        "path": "MonoVO.track_image + track_batch", "frames": N_MONO, "boot_frame": boot,
+        "boot_frame_ref": MONO_REF_BOOT, "ate_sim3_m": ate, "ate_ref_m": MONO_REF_ATE_M,
+        "keyframe_steps": len(kfs), "ba_accepted": n_ba_ok,
+        "used_fallback": sum(1 for s in log if s.get("used_fallback")),
+        "recovered": sum(1 for s in log if s.get("recovered", 0)),
+        "per_frame": per_frame, "batches": batches, "launches": launches, "card": card,
+    }))
+    print(json.dumps({"mono_stage_ms_median": med, "timed_frames": len(stage_ms),
+                      "steady_frame_ms_median": statistics.median(steady_ms), "card": card}))
+    print("time mono path: timed steady frame median "
+          f"{statistics.median(steady_ms):.2f} ms over {len(steady_ms)} frames; track_batch "
+          + "; ".join(f"{b['frames']} frames at {b['frames'] / b['s']:.2f} frames/s" for b in batches)
+          + f"; synchronised host clock; on {card}")
+    # KLT launches: none on the first frame, one klt_pyr on an init frame,
+    # one klt_pyr and one klt_scale on a steady frame; a fallback, recovery
+    # or keyframe step adds none.
+    if on_card:
+        want = {"first": (0, 0), "init": (1, 0), "init_reanchor": (1, 0), "bootstrapped": (1, 0),
+                "steady": (1, 1)}
+        for f in per_frame:
+            assert (f["klt_pyr"], f["klt_scale"]) == want[f["phase"]], f"mono KLT launches of a frame: {f}"
+        for b in batches:
+            assert b["klt_pyr"] == b["klt_scale"] == b["frames"], f"mono KLT launches of a batch: {b}"
+    assert abs(boot - MONO_REF_BOOT) <= 2, f"bootstrap at frame {boot}, reference {MONO_REF_BOOT}"
+    assert len(kfs) >= 2, f"only {len(kfs)} mono keyframe steps"
+    assert 2 * n_ba_ok >= len(kfs), f"BA accepted on {n_ba_ok} of {len(kfs)} mono keyframes"
+    assert ate <= 3 * MONO_REF_ATE_M, f"mono sim3 ATE {ate:.4f} m above 3x {MONO_REF_ATE_M:.4f} m"
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -695,23 +905,60 @@ def main() -> int:
         k = KK.track_scale(*args)
         r = KK.track_scale_ref(*args)
         cases["klt_scale"].append(compare(f"scale_{tag}", k[0], k[2], r[0], r[2]))
+    # Mono's configurations on a HardSequence pair (640x480, N = 512): the
+    # 2-D bidirectional climb (3 levels, 15/6 iterations, backward over
+    # level 0) and klt_scale at 30 iterations with s over [0.25, 4], so the
+    # kernel's clamp to [0.5, 2] is crossed on both sides.
+    m0 = torch.as_tensor(frames["mono"][0][MONO_PAIR], device=dev)
+    m1 = torch.as_tensor(frames["mono"][0][MONO_PAIR + 1], device=dev)
+    pm = _feature_grid(*m0.shape, 16, 32, dev)
+    nm = len(pm)
+    seed = (pm + noise[:nm]).contiguous()
+    vm = valid[:nm]
+    args = (list(build_pyramid(m0, 3)), list(build_pyramid(m1, 3)), pm, seed, vm, radius, iters, 6)
+    k = KK.track_pyr_bidir(*args, back_levels=1)
+    r = KK.track_pyr_bidir_ref(*args, back_levels=1)
+    cases["klt_pyr"].append(compare("climb_bidir_2d_fwd", k[0], k[1], r[0], r[1]))
+    cases["klt_pyr"].append(compare("climb_bidir_2d_back", k[3], k[4], r[3], r[4]))
+    # The backward climb alone on the same inputs: the plain version seeded
+    # with the kernel's forward result. A feature whose backward climb is
+    # chaotic (its plain result moves by pixels when the seed moves by
+    # 1e-4 px) can differ end to end by far more than rounding; this case
+    # and the sensitivity line say whether that is the kernel or the input.
+    back = args[:2]
+    b = KK.track_pyr_ref(back[1][:1], back[0][:1], k[0].contiguous(), pm, k[1], radius, iters, 6)
+    compare("climb_bidir_2d_back_same_seed", k[3], k[4], b[0], b[1])
+    pert = KK.track_pyr_ref(back[1][:1], back[0][:1], (r[0] + 1e-4).contiguous(), pm, r[1], radius, iters, 6)
+    dpp = torch.linalg.norm(pert[0] - r[3], dim=-1)[pert[1] & r[4]]
+    print(json.dumps({"case": "climb_bidir_2d_back_plain_seed_plus_1e-4px",
+                      "max_dp_px": float(dpp.max()), "n_over_tol_far": int((dpp > TOL_FAR_PX).sum())}))
+    seed_m, ok_m, _, _ = KK.track_level(m0, m1, pm, seed, vm, radius, iters)
+    sc = (0.25 + 3.75 * torch.rand(nm, generator=gen)).to(dev)
+    args = (m0, m1, pm, seed_m.contiguous(), sc, ok_m, 11, 30)
+    k = KK.track_scale(*args)
+    r = KK.track_scale_ref(*args)
+    cases["klt_scale"].append(compare("scale_mono", k[0], k[2], r[0], r[2]))
     torch.cuda.synchronize()
-    sites = call_site_times(pairs, dev, card)
+    sites = call_site_times({**klt_call_sites(pairs, dev), **mono_call_sites(frames["mono"][0], dev)}, card)
     timing = {
         "klt_pyr": sites["track"],
         "klt_scale": sites["scale"],
     }
-    for name, row in timing.items():
+    for name, row in [*timing.items(), ("klt_pyr mono_track", sites["mono_track"]),
+                      ("klt_scale mono_scale", sites["mono_scale"])]:
+        n = 512 if "mono" in name else N_FEAT
         print(f"time {name}: device {row['ms']:.4f} ms per launch (100 back-to-back launches), bound "
               f"{row['bound_ms']:.4f} ms by {row['bound_by']}, plain {row['plain_ms']:.4f} ms, wrapper host "
-              f"{row['host_us']:.1f} us per call (N={N_FEAT}) on {card}")
+              f"{row['host_us']:.1f} us per call (N={n}) on {card}")
 
-    # 4.-7. the paths -------------------------------------------------------
+    # 4.-8. the paths -------------------------------------------------------
     per_frame_path(frames, dev, card)
-    launches = serving_path(frames, dev, card)
+    serving = serving_path(frames, dev, card)
     rectification_path(frames, dev, card)
+    mono = mono_path(frames, dev, card)
+    launches = {k: serving[k] + mono[k] for k in serving}
 
-    # 8. result ------------------------------------------------------------
+    # 9. result ------------------------------------------------------------
     replaces = {
         "klt_pyr": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:380",
         "klt_scale": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:621",

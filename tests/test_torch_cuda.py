@@ -18,6 +18,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from visual_odometry_ros_tpu_torch import camera as TC  # noqa: E402
 from visual_odometry_ros_tpu_torch import io as tio  # noqa: E402
+from visual_odometry_ros_tpu_torch.io.synthetic import TwoPlaneSequence  # noqa: E402
+from visual_odometry_ros_tpu_torch.models import mono_vo as TMVO  # noqa: E402
+from visual_odometry_ros_tpu_torch.models import stereo_vo as TSVO  # noqa: E402
+from visual_odometry_ros_tpu_torch.models.mono_vo import MonoVO  # noqa: E402
 from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops import features as TF  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops import klt as KLT  # noqa: E402
@@ -370,3 +374,119 @@ def test_recovery_on_cuda_relocalizes_after_blackout(dev):
         vo.track_stereo_images(il, ir)
     assert 3 in [s.get("recovered", 0) for s in vo.stats_log]
     assert np.linalg.norm(vo.trajectory[-1][:3, 3] - poses[-1][:3, 3]) < 0.25
+
+
+def mono_cfg(use_pallas="auto"):
+    """tests/test_mono_vo_pipeline.py:_mono_cfg."""
+    cfg = tio.VOConfig()
+    cfg.cam.fx = cfg.cam.fy = 500.0
+    cfg.cam.cx, cfg.cam.cy = 320.0, 240.0
+    cfg.cam.width, cfg.cam.height = 640, 480
+    cfg.extractor.n_features = 384
+    cfg.extractor.n_bins_u = 16
+    cfg.extractor.n_bins_v = 10
+    cfg.extractor.score_min = 10.0
+    cfg.extractor.thres_fastscore = 8.0
+    cfg.map.landmark_capacity = 2048
+    cfg.map.thres_parallax = 0.4
+    cfg.keyframe.n_max_keyframes_in_window = 5
+    cfg.keyframe.thres_translation = 1e9
+    cfg.keyframe.thres_overlap_ratio = 0.75
+    cfg.tracker.max_level = 3
+    cfg.tracker.max_iter = 15
+    cfg.tracker.thres_sampson = 100.0
+    cfg.tracker.use_pallas = use_pallas
+    return cfg
+
+
+def test_entry_points_default_to_the_card():
+    """StereoVO(cfg), MonoVO(cfg) and both `state_from_numpy` place their
+    tensors on the card; with no card the constructor (or at the latest the
+    first frame) and the state restore raise instead of carrying on on the
+    CPU."""
+    frame = np.zeros((480, 640), np.float32)
+    trees = []
+    for cls, mod, cfg in ((StereoVO, TSVO, plane_cfg()), (MonoVO, TMVO, mono_cfg())):
+        vo = cls(cfg, device="cpu")
+        trees.append((mod, mod.state_to_numpy(vo.init_state(vo._build_pyr(torch.zeros(480, 640))))))
+    if torch.cuda.is_available():
+        for vo in (StereoVO(plane_cfg()), MonoVO(mono_cfg())):
+            assert vo.device.type == "cuda"
+        for mod, tree in trees:
+            assert mod.state_from_numpy(tree).T_wc.device.type == "cuda"
+        return
+    for make, feed in ((lambda: StereoVO(plane_cfg()), lambda vo: vo.track_stereo_images(frame, frame)),
+                       (lambda: MonoVO(mono_cfg()), lambda vo: vo.track_image(frame))):
+        with pytest.raises((RuntimeError, AssertionError)):
+            feed(make())
+    for mod, tree in trees:
+        with pytest.raises((RuntimeError, AssertionError)):
+            mod.state_from_numpy(tree)
+
+
+@pytest.mark.cuda
+def test_klt_pyr_bidir_2d_at_mono_call_sites(dev):
+    """The 2-D bidirectional climb with the backward pass over level 0 only,
+    as mono's init track (seeded at p0) and steady track (seeded from a
+    prior) launch it: forward and backward outputs against the plain version,
+    features 1-2 px from every border."""
+    a, b = _pair(dev, shift=(3, -2))
+    imgs0, imgs1 = list(build_pyramid(a, 3)), list(build_pyramid(b, 3))
+    p0 = border_features(dev)
+    rng = np.random.default_rng(5)
+    prior = (p0 + torch.tensor([3.0, -2.0], device=dev)
+             + torch.tensor(rng.uniform(-1, 1, p0.shape), dtype=torch.float32, device=dev)).contiguous()
+    valid = torch.ones(len(p0), dtype=torch.bool, device=dev)
+    for seed in (p0.contiguous(), prior):
+        args = (imgs0, imgs1, p0, seed, valid, 10, 15, 6, 0.03, 1e-4, False)
+        KK.reset_launch_counts()
+        k = KK.track_pyr_bidir(*args, back_levels=1)
+        torch.cuda.synchronize()
+        assert KK.LAUNCHES == {"klt_pyr": 1, "klt_scale": 0}
+        r = KK.track_pyr_bidir_ref(*args, back_levels=1)
+        agree(k[0], k[1], r[0], r[1])
+        agree(k[3], k[4], r[3], r[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [0.3, 3.5])
+def test_klt_scale_mono_iterations_beyond_the_clip(dev, s):
+    """Mono's 30 scale iterations with a prior outside [0.5, 2] (mono clips
+    its priors to [0.25, 4]); the kernel clamps s as its plain version does."""
+    a, b = _pair(dev, shift=(2, -1))
+    p0 = border_features(dev)
+    valid = torch.ones(len(p0), dtype=torch.bool, device=dev)
+    sc = torch.full((len(p0),), s, device=dev)
+    p1 = (p0 + torch.tensor([1.5, -0.5], device=dev)).contiguous()
+    k = KK.track_scale(a, b, p0, p1, sc, valid, radius=11, iters=30)
+    r = KK.track_scale_ref(a, b, p0, p1, sc, valid, 11, 30)
+    agree(k[0], k[2], r[0], r[2], min_live=0.2)
+    clamped = KK.track_scale_ref(a, b, p0, p1, torch.full_like(sc, 0.5 if s < 1 else 2.0), valid, 11, 30)
+    assert torch.equal(r[2], clamped[2]) and torch.equal(r[0], clamped[0])
+
+
+@pytest.mark.cuda
+def test_mono_pipeline_on_cuda_kernel_and_plain_legs(dev):
+    """MonoVO(cfg) with no device argument on the two-plane world: the kernel
+    leg and the plain leg run on the card with the same phases, and both
+    stay within tests/test_mono_vo_pipeline.py's bound (sim3 ATE after the
+    bootstrap < 8% of the distance)."""
+    world = TwoPlaneSequence(z0_a=9.0, z0_b=18.0)
+    poses = tio.forward_trajectory(16, step=0.3, yaw_rate=0.001, lateral=0.12)
+    frames = [world.render(np.linalg.inv(T.astype(np.float64))) for T in poses]
+    runs = {}
+    for leg in ("auto", "off"):
+        vo = MonoVO(mono_cfg(leg))
+        assert vo.device.type == "cuda"
+        KK.reset_launch_counts()
+        for f in frames:
+            vo.track_image(f)
+        runs[leg] = (vo, dict(KK.LAUNCHES))
+    assert runs["auto"][1]["klt_pyr"] > 0 and runs["auto"][1]["klt_scale"] > 0
+    assert runs["off"][1] == {"klt_pyr": 0, "klt_scale": 0}
+    phases = [[s["phase"] for s in vo.stats_log] for vo, _ in runs.values()]
+    assert phases[0] == phases[1] and "bootstrapped" in phases[0]
+    b = phases[0].index("bootstrapped")
+    path = np.sum(np.linalg.norm(np.diff(poses[b:, :3, 3], axis=0), axis=1))
+    for vo, _ in runs.values():
+        assert tio.ate_rmse(np.stack(vo.trajectory)[b:], poses[b:], align="sim3") < 0.08 * path

@@ -124,7 +124,7 @@ def test_recovery_from_jax_state_matches(corridor_frames, jax_run, mode):
     pre, ref = recs[k]["pre"], recs[k]["steady"]
     vo = TVO(small_cfg(tio.VOConfig, "off"), device="cpu")
     il, ir = (torch.as_tensor(x, dtype=torch.float32) for x in corridor_frames[k])
-    new, stats = vo._steady_step(state_from_numpy(pre), il, ir, draw=jax_draws(int(pre.frame_id) + 1))
+    new, stats = vo._steady_step(state_from_numpy(pre, device="cpu"), il, ir, draw=jax_draws(int(pre.frame_id) + 1))
     assert int(stats.recovered) == mode
     np.testing.assert_allclose(new.T_wc.numpy(), ref.T_wc, atol=1e-4)
     np.testing.assert_array_equal(new.tracks.valid.numpy(), ref.tracks.valid)
@@ -147,7 +147,7 @@ def test_track_pnp_tier_matches_jax(corridor_frames, jax_run):
         return jax.tree_util.tree_map(lambda a: torch.as_tensor(np.array(a)), x)
 
     vo = TVO(small_cfg(tio.VOConfig, "off"), device="cpu")
-    new, mode = vo._recover(state_from_numpy(pre), T(pyr_l), T(pyr_r), T(pts1), T(ok_track), T(has_3d),
+    new, mode = vo._recover(state_from_numpy(pre, device="cpu"), T(pyr_l), T(pyr_r), T(pts1), T(ok_track), T(has_3d),
                             draw=jax_draws(int(pre.frame_id)))
     assert int(mode) == 1
     np.testing.assert_allclose(new.T_wc.numpy(), np.asarray(ref.T_wc), atol=1e-4)

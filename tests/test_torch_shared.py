@@ -86,6 +86,8 @@ sys.path = [p for p in sys.path if p not in ("", REPO)]
 sys.path.insert(0, COPY)
 import visual_odometry_ros_tpu_torch.io
 import visual_odometry_ros_tpu_torch.models.stereo_vo
+import visual_odometry_ros_tpu_torch.models.mono_vo
+import visual_odometry_ros_tpu_torch.ops.epipolar
 import visual_odometry_ros_tpu_torch.io.checkpoint
 from visual_odometry_ros_tpu_torch.io import VOConfig, forward_trajectory, PlaneSequence
 assert VOConfig().tracker.max_iter > 0 and forward_trajectory(3).shape == (3, 4, 4)

@@ -108,7 +108,7 @@ def _port(use_pallas="off"):
 
 def test_state_round_trip(jax_run):
     src = jax_run[4]["post"]
-    back = state_to_numpy(state_from_numpy(src))
+    back = state_to_numpy(state_from_numpy(src, device="cpu"))
     leaves_src = jax.tree_util.tree_leaves(src)
     leaves_back = jax.tree_util.tree_leaves(back)
     assert len(leaves_src) == len(leaves_back)
@@ -123,7 +123,7 @@ def test_steady_step_from_jax_state(seq, jax_run):
     pre, ref, st = jax_run[i]["pre"], jax_run[i]["steady"], jax_run[i]["stats"]
     vo = _port("off")
     il, ir = (torch.as_tensor(x, dtype=torch.float32) for x in frames[i])
-    new, stats = vo._steady_step(state_from_numpy(pre), il, ir)
+    new, stats = vo._steady_step(state_from_numpy(pre, device="cpu"), il, ir)
     # Survivors: valid before and after, same landmark (not a refilled lane).
     keep = pre.tracks.valid & ref.tracks.valid & (pre.tracks.lm_idx == ref.tracks.lm_idx)
     assert keep.sum() > 100
@@ -141,7 +141,7 @@ def test_keyframe_step_from_jax_state(jax_run):
     i = next(k for k in range(1, len(jax_run)) if jax_run[k]["kf"])
     pre_kf, ref = jax_run[i]["steady"], jax_run[i]["post"]
     vo = _port("off")
-    new, ba_err, acc = vo._keyframe_step(state_from_numpy(pre_kf))
+    new, ba_err, acc = vo._keyframe_step(state_from_numpy(pre_kf, device="cpu"))
     assert bool(acc) == jax_run[i]["ba_acc"]
     # 10 BA iterations through a float32 Cholesky, sums in another order.
     np.testing.assert_allclose(float(ba_err), jax_run[i]["ba_err"], rtol=1e-3, atol=1e-4)
@@ -219,7 +219,7 @@ def test_timer_matches_jax_and_takes_a_state_to_wait_on(jax_run):
     assert tt.summary() == jt.summary() == {"track": 3.5, "pose": 5.5}
     assert tt.last_ms == jt.last_ms and dict(tt.counts) == dict(jt.counts)
     assert tt.mean_ms("absent") == jt.mean_ms("absent") == 0.0
-    state = state_from_numpy(jax_run[4]["post"])
+    state = state_from_numpy(jax_run[4]["post"], device="cpu")
     assert TT.block_until_ready(state) is state
     with tt.stage("wait", block_on=state):
         pass
@@ -263,7 +263,7 @@ def test_checkpoint_crosses_both_ways(tmp_path, seq, jax_run, jvo):
 def test_checkpoint_state_round_trip_and_shape_check(tmp_path, jax_run):
     """Port save_state -> load_state is bit-exact, with the reference's leaf
     keys; a template of another capacity is refused."""
-    st = state_from_numpy(jax_run[4]["post"])
+    st = state_from_numpy(jax_run[4]["post"], device="cpu")
     TCK.save_state(str(tmp_path / "s.npz"), st)
     with np.load(str(tmp_path / "s.npz")) as data:
         keys = set(data.files)
@@ -273,7 +273,7 @@ def test_checkpoint_state_round_trip_and_shape_check(tmp_path, jax_run):
         assert ka == kb and a.dtype == b.dtype and torch.equal(a, b), ka
     cfg = small_cfg(tio.VOConfig, "off")
     cfg.extractor.n_features = 128
-    small = TVO(cfg)
+    small = TVO(cfg, device="cpu")
     with pytest.raises(ValueError):
         TCK.load_state(str(tmp_path / "s.npz"), small.init_state(small._build_pyr(torch.zeros(480, 640))))
 

@@ -8,9 +8,10 @@ either package resumes in the other.
 
 Pyramids: the KLT kernel leg of either package stores its pyramids without
 gradients (gx = gy = img), the plain legs with them. `save_vo` therefore
-writes the gradients out in full, and `load_vo` rebuilds the pyramid for the
-loading StereoVO's own leg from the stored level-0 image, so a checkpoint from
-any leg resumes in any other.
+writes the gradients out in full, and `load_vo` rebuilds each pyramid
+(`pyr_prev`, and the mono pipeline's `pyr_first`) for the loading pipeline's own
+leg from the stored level-0 image, so a checkpoint from any leg resumes in
+any other. The meta file carries the mono pipeline's `phase` (null for stereo).
 """
 
 from __future__ import annotations
@@ -66,11 +67,16 @@ def load_state(path: str, template):
     return _rebuild(template, iter(new))
 
 
+def _pyramid_fields(state) -> list:
+    return [f.name for f in dataclasses.fields(state) if f.name.startswith("pyr_")]
+
+
 def save_vo(path: str, vo) -> None:
-    """Checkpoint a StereoVO (device state + host trajectories)."""
+    """Checkpoint a StereoVO or MonoVO (device state + host trajectories)."""
     st = vo.state
-    pyr = build_pyramid_with_gradients(st.pyr_prev[0][0], len(st.pyr_prev), with_gradients=True)
-    save_state(path + ".state.npz", st.replace(pyr_prev=pyr))
+    pyrs = {name: build_pyramid_with_gradients(getattr(st, name)[0][0], len(getattr(st, name)),
+                                               with_gradients=True) for name in _pyramid_fields(st)}
+    save_state(path + ".state.npz", st.replace(**pyrs))
     meta = {
         "phase": getattr(vo, "phase", None),
         "trajectory": [np.asarray(T).tolist() for T in vo.trajectory],
@@ -81,14 +87,16 @@ def save_vo(path: str, vo) -> None:
 
 
 def load_vo(path: str, vo) -> None:
-    """Resume a StereoVO in place. `vo` must be freshly constructed with the
-    same config, and must not have processed a frame."""
+    """Resume a StereoVO or MonoVO in place. `vo` must be freshly constructed
+    with the same config, and must not have processed a frame."""
     if vo.state is None:
         h, w = vo.cfg.cam.height, vo.cfg.cam.width
         vo.state = vo.init_state(vo._build_pyr(torch.zeros((h, w), dtype=torch.float32, device=vo.device)))
     st = load_state(path + ".state.npz", vo.state)
-    vo.state = st.replace(pyr_prev=vo._build_pyr(st.pyr_prev[0][0]))
+    vo.state = st.replace(**{name: vo._build_pyr(getattr(st, name)[0][0]) for name in _pyramid_fields(st)})
     with open(path + ".meta.json") as f:
         meta = json.load(f)
+    if meta.get("phase") is not None and hasattr(vo, "phase"):
+        vo.phase = meta["phase"]
     vo.trajectory = [np.asarray(T, np.float32) for T in meta["trajectory"]]
     vo.kf_trajectory = [(int(i), np.asarray(T, np.float32)) for i, T in meta["kf_trajectory"]]

@@ -13,7 +13,6 @@ readback per batch.
 
 from __future__ import annotations
 
-import dataclasses
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -34,6 +33,7 @@ from ..ops import triangulate as TRI
 from ..ops.pyramid import build_pyramid_with_gradients, global_shift_zncc
 from ..utils import geometry as geo
 from ..utils import interp, robust, timer
+from ._state import at, rot_deg, tree_from_numpy, tree_to_numpy
 
 # Minimal-set hypotheses per recovery PnP (the reference's n_hypotheses).
 _RECOVERY_HYPOTHESES = 128
@@ -72,21 +72,11 @@ class FrameStats(NamedTuple):
     recovered: torch.Tensor
 
 
-def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """x[i] for a 0-d index tensor, without a host round trip."""
-    return x.index_select(0, i.reshape(1).to(torch.int64))[0]
-
-
-def _rot_deg(R: torch.Tensor) -> torch.Tensor:
-    cos = torch.clamp((torch.diagonal(R).sum() - 1.0) * 0.5, -1.0, 1.0)
-    return torch.rad2deg(torch.arccos(cos))
-
-
 class StereoVO:
     """Stereo VO on one device: per-frame scalar control flow in Python, tensor
     work on `device`."""
 
-    def __init__(self, cfg, device="cpu"):
+    def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         c, cr = cfg.cam, cfg.cam_right
@@ -404,8 +394,8 @@ class StereoVO:
         dT_cand = geo.se3_inverse(res.T10)
         step_prev = torch.linalg.norm(state.dT[:3, 3])
         step_new = torch.linalg.norm(dT_cand[:3, 3])
-        rot_prev = _rot_deg(state.dT[:3, :3])
-        rot_new = _rot_deg(dT_cand[:3, :3])
+        rot_prev = rot_deg(state.dT[:3, :3])
+        rot_new = rot_deg(dT_cand[:3, :3])
         sane = (step_new <= torch.clamp(m.sanity_step_mult * step_prev, min=m.max_step_abs)) & (
             rot_new <= torch.clamp(m.sanity_step_mult * rot_prev, min=m.max_rot_abs_deg)
         )
@@ -453,21 +443,21 @@ class StereoVO:
         # Keyframe rule: overlap with the last keyframe + motion thresholds,
         # decided before replenishment (births cannot change the overlap).
         head = state.ring.head
-        last_kf_lm = _at(state.ring.lm_idx, head).to(torch.int64)
-        last_kf_ov = _at(state.ring.obs_valid, head)
+        last_kf_lm = at(state.ring.lm_idx, head).to(torch.int64)
+        last_kf_ov = at(state.ring.obs_valid, head)
         still = up(torch.zeros((self.M,), dtype=torch.bool, device=d), tracks.lm_idx, tracks.valid, op="or")
         still = torch.cat([still, torch.zeros((1,), dtype=torch.bool, device=d)])
         overlap = torch.sum(still[torch.where(last_kf_ov, last_kf_lm, self.M)] & last_kf_ov) / torch.clamp(
             torch.sum(last_kf_ov), min=1
         )
-        T_kf_wc = geo.se3_inverse(_at(state.ring.T_cw, head))
+        T_kf_wc = geo.se3_inverse(at(state.ring.T_cw, head))
         dT_kf = geo.se3_inverse(T_kf_wc) @ T_wc_new
         trans = torch.linalg.norm(dT_kf[:3, 3])
-        rot_deg = _rot_deg(dT_kf[:3, :3])
+        rot_kf = rot_deg(dT_kf[:3, :3])
         need_kf = (
             (overlap < cfg.keyframe.thres_overlap_ratio)
             | (trans > cfg.keyframe.thres_translation)
-            | (rot_deg > cfg.keyframe.thres_rotation)
+            | (rot_kf > cfg.keyframe.thres_rotation)
         ) & pose_ok
 
         # Replenish only under a trusted pose, and only on a track deficit
@@ -495,7 +485,7 @@ class StereoVO:
             mean_reproj_err=mean_err,
             overlap_ratio=overlap,
             kf_translation=trans,
-            kf_rotation_deg=rot_deg,
+            kf_rotation_deg=rot_kf,
             need_keyframe=need_kf,
             avg_parallax=avg_parallax,
             avg_age=avg_age,
@@ -727,7 +717,7 @@ class StereoVO:
         killed = res.killed & accept
         # Refined poses back into their ring slots (oldest -> newest order).
         ring = ring.replace(T_cw=ring.T_cw.index_put((A.ring_order(ring),), T_cw_res))
-        T_wc_new = geo.se3_inverse(_at(ring.T_cw, ring.head))
+        T_wc_new = geo.se3_inverse(at(ring.T_cw, ring.head))
         touched = g["lm_valid"] & (torch.sum(problem.mask, dim=1) >= 2) & accept
         arena = state.arena.replace(
             Xw=Xw_res,
@@ -894,39 +884,13 @@ class StereoVO:
 # ----------------------------------------------------------------------
 
 
-def _tree_to_numpy(x):
-    if dataclasses.is_dataclass(x):
-        return tuple(_tree_to_numpy(getattr(x, f.name)) for f in dataclasses.fields(x))
-    if isinstance(x, tuple):
-        return tuple(_tree_to_numpy(v) for v in x)
-    return x.detach().cpu().numpy()
-
-
 def state_to_numpy(state: StereoVOState) -> tuple:
     """The state as nested tuples of numpy arrays, in the field order of the
     reference `StereoVOState` (its pytree leaf order), pyramids included."""
-    return _tree_to_numpy(state)
+    return tree_to_numpy(state)
 
 
-def _from_numpy(cls, tree, device):
-    vals = list(tree)
-    kw = {}
-    for f, v in zip(dataclasses.fields(cls), vals):
-        sub = {"tracks": A.TrackState, "arena": A.LandmarkArena, "ring": A.KeyframeRing}.get(f.name)
-        if sub is not None:
-            kw[f.name] = _from_numpy(sub, v, device)
-        elif f.name == "pyr_prev":
-            kw[f.name] = tuple(
-                tuple(torch.as_tensor(np.asarray(a)).to(device) for a in lvl) for lvl in v
-            )
-        else:
-            kw[f.name] = torch.as_tensor(np.asarray(v)).to(device)
-    if len(vals) != len(kw):
-        raise ValueError(f"{cls.__name__}: expected {len(kw)} fields, got {len(vals)}")
-    return cls(**kw)
-
-
-def state_from_numpy(tree, device="cpu") -> StereoVOState:
+def state_from_numpy(tree, device="cuda") -> StereoVOState:
     """Build the port's state from the reference `StereoVOState` after
     `jax.device_get` (or any nested tuple with the same field order)."""
-    return _from_numpy(StereoVOState, tree, torch.device(device))
+    return tree_from_numpy(StereoVOState, tree, torch.device(device))

@@ -1,7 +1,7 @@
-"""Pose-only Gauss-Newton with Huber weights: mono, stereo, stereo two-pass gate.
+"""Pose-only Gauss-Newton with Huber weights: mono and stereo, each with its
+two-pass gate.
 
-Counterpart of `visual_odometry_ros_tpu/ops/pose_gn.py` (the mono two-pass
-gate comes with the mono pipeline). The reference's
+Counterpart of `visual_odometry_ros_tpu/ops/pose_gn.py`. The reference's
 `lax.while_loop` becomes a host loop that checks its stop flag once every
 `_CHECK_EVERY` iterations: iterations after the stop are masked no-ops, so
 the result equals the while loop's while the host syncs a few times per
@@ -198,6 +198,37 @@ def pose_only_gn_stereo_robust(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx,
     n_all = torch.clamp(torch.sum(valid_l), min=1)
     err_prior = _reproj_err_px(T_10_init, X0, pts_l1, fx, fy, cx, cy)
     n_prior = torch.sum(valid_l & (err_prior < params.reproj_thresh))
+    ok = (
+        (res1.ok | res2.ok)
+        & (n_fin >= params.min_inliers)
+        & (n_fin / n_all >= params.min_inlier_ratio)
+        & (n_fin + 2 >= n_prior)
+    )
+    mean_err = torch.where(use2, res2.mean_err, res1.mean_err)
+    return PoseGNResult(T, inliers, mean_err, ok, res1.n_iter + res2.n_iter), err
+
+
+def pose_only_gn_mono_robust(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
+                             params: PoseGNParams = PoseGNParams(), gate_scale: float = 2.0):
+    """Mono twin of `pose_only_gn_stereo_robust`: solve, hard-gate, re-solve
+    on the survivors, arbitrate on inlier counts over the common point set.
+    Returns (PoseGNResult, err_px [N] under the chosen pose)."""
+    res1 = pose_only_gn_mono(X0, pts1, valid, fx, fy, cx, cy, T_10_init, params)
+    T1 = torch.where(res1.ok, res1.T10, T_10_init)
+    err1 = _reproj_err_px(T1, X0, pts1, fx, fy, cx, cy)
+    keep = valid & (err1 < gate_scale * params.reproj_thresh)
+    res2 = pose_only_gn_mono(X0, pts1, keep, fx, fy, cx, cy, T1, params)
+    err2_all = _reproj_err_px(res2.T10, X0, pts1, fx, fy, cx, cy)
+    n1 = torch.sum(valid & (err1 < params.reproj_thresh))
+    n2 = torch.sum(valid & (err2_all < params.reproj_thresh))
+    use2 = res2.ok & (~res1.ok | (n2 >= n1))
+    T = torch.where(use2, res2.T10, torch.where(res1.ok, res1.T10, T_10_init))
+    err = _reproj_err_px(T, X0, pts1, fx, fy, cx, cy)
+    inliers = valid & (err < params.reproj_thresh)
+    n_fin = torch.sum(inliers)
+    n_all = torch.clamp(torch.sum(valid), min=1)
+    err_prior = _reproj_err_px(T_10_init, X0, pts1, fx, fy, cx, cy)
+    n_prior = torch.sum(valid & (err_prior < params.reproj_thresh))
     ok = (
         (res1.ok | res2.ok)
         & (n_fin >= params.min_inliers)

@@ -34,22 +34,24 @@ def _solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def triangulate(xn0: torch.Tensor, xn1: torch.Tensor, T_10: torch.Tensor):
     """Triangulate N points from normalized coords in frames 0 and 1;
-    T_10 maps frame 0 to frame 1. Returns (X0 [N, 3], X1 [N, 3])."""
-    R = T_10[:3, :3]
-    t = T_10[:3, 3]
+    T_10 maps frame 0 to frame 1: one pose [4, 4] for all points, or one
+    per point [N, 4, 4] (the reference's `vmap` over landmarks). Returns
+    (X0 [N, 3], X1 [N, 3])."""
+    R = T_10[..., :3, :3]
+    t = T_10[..., :3, 3]
     x0, y0 = xn0[..., 0], xn0[..., 1]
     x1, y1 = xn1[..., 0], xn1[..., 1]
     z3 = torch.zeros_like(x0)
     o3 = torch.ones_like(x0)
     r0a = torch.stack([o3, z3, -x0], dim=-1)
     r0b = torch.stack([z3, o3, -y0], dim=-1)
-    r1a = x1[..., None] * R[2] - R[0]
-    r1b = y1[..., None] * R[2] - R[1]
-    b1a = t[0] - x1 * t[2]
-    b1b = t[1] - y1 * t[2]
+    r1a = x1[..., None] * R[..., 2, :] - R[..., 0, :]
+    r1b = y1[..., None] * R[..., 2, :] - R[..., 1, :]
+    b1a = t[..., 0] - x1 * t[..., 2]
+    b1b = t[..., 1] - y1 * t[..., 2]
     A = torch.stack([r0a, r0b, r1a, r1b], dim=-2)  # [N, 4, 3]
     b = torch.stack([z3, z3, b1a, b1b], dim=-1)  # [N, 4]
     AtA = torch.sum(A[..., :, :, None] * A[..., :, None, :], dim=-3)
     Atb = torch.sum(A * b[..., None], dim=-2)
     X0 = _solve3x3(AtA, Atb)
-    return X0, X0 @ R.T + t
+    return X0, torch.sum(R * X0[..., None, :], dim=-1) + t
