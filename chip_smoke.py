@@ -41,22 +41,44 @@ the final line):
      `track_image` until the bootstrap, 6 frames with `timed=True`, then
      `track_batch`; checks the bootstrap frame, keyframe steps and BA
      acceptance, sim3 ATE against the JAX package's CPU run
-     (tests/reference_mono_smoke.py) and KLT launches frame by frame.
+     (tests/reference_mono_smoke.py) and KLT launches frame by frame;
+  9. image-level KLT: `ops/klt.track`, `track_with_prior` and
+     `track_bidirectional` (default KLTParams, kernel leg) on corridor
+     frames 10 -> 11 at N = 1024: one `klt_pyr` launch per call, each
+     against the same call on the plain kernel versions, and timed as the
+     call sites of phase 3;
+ 10. the CLI (`python -m visual_odometry_ros_tpu_torch.run_vo`, called
+     in-process): the 25 corridor frames of phases 4-5 written as a KITTI
+     odometry sequence under build/, run with config/stereo/
+     kitti_00_stereo.yaml per frame (--stage-timing) and with --batch 12:
+     ATE and keyframes against the JAX package's CPU run
+     (tests/reference_cli_smoke.py), the two runs' poses against each
+     other, KLT launches frame by frame, one stats.jsonl record per frame;
+     then --dataset synthetic --mode mono --frames 14 against the same
+     reference;
+ 11. distributed BA: a 1-rank NCCL group (`parallel/multihost.init_worker`),
+     `make_distributed_ba` at __graft_entry__.dryrun_multichip's problem
+     (K = 9, M = 4096, 3 iterations, stereo rows) against the single-device
+     solve, timed by CUDA events.
 Every path is driven with the kernel launch counts set to 0 just before it
 and read just after. The last two lines are the kernel table (launches of
-the serving and mono paths) and {"ok": true, "device": ...}. This script
-imports no JAX.
+the serving, mono, image-level KLT and CLI paths) and {"ok": true,
+"device": ...}. This script imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
+import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -125,6 +147,45 @@ MONO_PAIR = 20  # frames 20 -> 21: the mono kernel checks and call sites
 MONO_CHUNK = 24
 MONO_REF_BOOT = 12
 MONO_REF_ATE_M = 0.36036
+
+# The CLI on a KITTI layout: the N_MAIN corridor frames of phases 4-5 as
+# sequence 00 (calib P0/P1 for fx 718.856, baseline 0.5371657 m), two ways:
+#  - full width with the KITTI 00 stereo configuration
+#    (config/stereo/kitti_00_stereo.yaml: 1241x376, N = 1024 in 24x12 bins,
+#    4 levels, window 21, K = 10), per frame and with --batch CLI_BATCH.
+#    Reference: the same CLI on the same layout with --device cpu (the
+#    kernels' plain versions), run on the CPU of the machine that holds the
+#    card by tests/reference_cli_plain.py: se3 ATE CLI_PLAIN_ATE_M,
+#    keyframes CLI_PLAIN_KEYFRAMES (that machine has no JAX, so the JAX
+#    comparison is made on the crop);
+#  - the central CLI_CROP_W columns (cx shifted, 512 tracks in 12x12 bins,
+#    the configuration's bin size; `crop_layout`). Reference: the JAX
+#    package's scripts/run_vo.py on CPU on the same crop
+#    (tests/reference_cli_smoke.py): CLI_REF_ATE_M, CLI_REF_KEYFRAMES.
+# Bounds: ATE at most 3x, keyframes within +-1. The per-frame and --batch
+# runs agree to CLI_BATCH_TOL_M on every position (the same steps on the
+# same float32 frames).
+KITTI_CONFIG = "config/stereo/kitti_00_stereo.yaml"
+KITTI_FX, KITTI_CX, KITTI_CY, KITTI_BASELINE = 718.856, 607.1928, 185.2157, 0.5371657
+CLI_CROP_W = 620
+CLI_REF_ATE_M = 0.006513906530240936
+CLI_REF_KEYFRAMES = 4
+CLI_PLAIN_ATE_M = 0.04180905436665646
+CLI_PLAIN_KEYFRAMES = 5
+CLI_BATCH = 12
+CLI_BATCH_TOL_M = 1e-4
+# The mono CLI: --dataset synthetic --mode mono --frames CLI_MONO_FRAMES. The
+# JAX package's CPU run of the same command (the same reference script):
+# ate_rmse_post_init CLI_MONO_REF_ATE_M. Bound: at most 3x.
+CLI_MONO_FRAMES = 14
+CLI_MONO_REF_ATE_M = 0.0028401497356199496
+
+# Distributed BA: __graft_entry__.dryrun_multichip's problem (K = 9,
+# M = 4096, 3 iterations), one NCCL rank against the single-device solve.
+# Tolerances of tests/test_dist_ba.py: poses 2e-4, landmarks 5e-3 m, mean
+# error 1e-3 px, n_obs and iterations equal.
+BA_ITERS = 3
+BA_TOL = {"T_cw": 2e-4, "Xw": 5e-3, "err": 1e-3}
 
 
 # Bounds (least device time for a call's work): the fp32 operations the
@@ -817,6 +878,323 @@ def mono_path(frames, device, card) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """The kernel wrappers replaced by their plain versions while the block
+    runs: the same calls on the same tensors, without the kernels."""
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    names = ("track_pyr", "track_pyr_bidir", "track_scale")
+    orig = {n: getattr(KK, n) for n in names}
+    for n in names:
+        setattr(KK, n, getattr(KK, n + "_ref"))
+    try:
+        yield
+    finally:
+        for n, f in orig.items():
+            setattr(KK, n, f)
+
+
+def image_api_sites(pairs, dev):
+    """Phase 9's calls: ops/klt.track, track_with_prior and
+    track_bidirectional with default KLTParams on the kernel leg, corridor
+    frames 10 -> 11, N = 1024 (seeds 2 px off for the prior-seeded calls).
+    Same layout as `klt_call_sites`; the wrapper and plain entries take the
+    pyramids the call builds."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.ops import klt as KLT
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    kp = KLT.KLTParams(use_kernel=True)
+    up = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    img_a, img_b = up(pairs[10][0]), up(pairs[11][0])
+    lv_a, lv_b = ([lv[0] for lv in pyr] for pyr in KLT._image_pyramids(img_a, img_b, kp))
+    p = _feature_grid(*img_a.shape, 32, 32, dev)
+    rng = np.random.default_rng(2)
+    seed = (p + up(rng.uniform(-2, 2, p.shape))).contiguous()
+    valid = torch.ones(len(p), dtype=torch.bool, device=dev)
+    common = (kp.window_radius, kp.iters, kp.iters_coarse, kp.eps, kp.min_eig)
+    fwd0, fwd = (lv_a, lv_b, p, p, valid, *common), (lv_a, lv_b, p, seed, valid, *common)
+    bidir = (lv_a, lv_b, p, seed, valid, *common, False, kp.levels)
+    pt_bytes = _pt_bytes(len(p), 8 + 4 + 1)
+    return {
+        "api_track": dict(
+            call=lambda: KLT.track(img_a, img_b, p, valid, kp),
+            wrapper=lambda: KK.track_pyr(*fwd0), plain=lambda c: KK.track_pyr_ref(*fwd0, counts=c),
+            bytes=_img_bytes(lv_a) + pt_bytes),
+        "api_track_with_prior": dict(
+            call=lambda: KLT.track_with_prior(img_a, img_b, p, seed, valid, kp),
+            wrapper=lambda: KK.track_pyr(*fwd), plain=lambda c: KK.track_pyr_ref(*fwd, counts=c),
+            bytes=_img_bytes(lv_a) + pt_bytes),
+        "api_track_bidirectional": dict(
+            call=lambda: KLT.track_bidirectional(img_a, img_b, p, seed, valid, kp),
+            wrapper=lambda: KK.track_pyr_bidir(*bidir), plain=lambda c: KK.track_pyr_bidir_ref(*bidir, counts=c),
+            bytes=_img_bytes(lv_a) + _pt_bytes(len(p), 8 + 4 + 1 + 8 + 1)),
+    }
+
+
+def image_api_path(sites) -> tuple:
+    """Phase 9: each image-level call once with the counts reset: exactly
+    one klt_pyr launch, and (p1, ok) against the same call on the plain
+    versions. Returns (launches, compare rows)."""
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    total = {k: 0 for k in KK.LAUNCHES}
+    rows = []
+    for name, site in sites.items():
+        KK.reset_launch_counts()
+        p_k, ok_k = site["call"]()
+        got = dict(KK.LAUNCHES)
+        assert got == {"klt_pyr": 1, "klt_scale": 0}, f"{name}: launches {got}, expected one klt_pyr"
+        for k in total:
+            total[k] += got[k]
+        with plain_kernels():
+            p_r, ok_r = site["call"]()
+        rows.append(compare(name, p_k, ok_k, p_r, ok_r))
+    return total, rows
+
+
+def write_png_gray(path: str, img: np.ndarray) -> None:
+    """8-bit grey PNG through the standard library (filter 0 on every row)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    H, W = img.shape
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), img], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_kitti_layout(root: str, left, right, poses, fx: float, cx: float, cy: float,
+                       baseline: float) -> str:
+    """KITTI odometry sequence 00 under root: image_0/1 PNGs, times.txt,
+    calib.txt (P0, P1) and poses/00.txt (T_wc rows). Returns root."""
+    seq = os.path.join(root, "sequences", "00")
+    for cam, imgs in (("image_0", left), ("image_1", right)):
+        os.makedirs(os.path.join(seq, cam), exist_ok=True)
+        for i, img in enumerate(imgs):
+            write_png_gray(os.path.join(seq, cam, f"{i:06d}.png"), img)
+    with open(os.path.join(seq, "times.txt"), "w") as f:
+        f.writelines(f"{0.1 * i:.6e}\n" for i in range(len(left)))
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        for name, tx in (("P0", 0.0), ("P1", -fx * baseline)):
+            f.write(f"{name}: {fx} 0 {cx} {tx} 0 {fx} {cy} 0 0 0 1 0\n")
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    with open(os.path.join(root, "poses", "00.txt"), "w") as f:
+        f.writelines(" ".join(f"{v:.9e}" for v in np.asarray(T, np.float64)[:3, :4].ravel()) + "\n"
+                     for T in poses)
+    return root
+
+
+def crop_config(path: str, x0: int) -> str:
+    """KITTI_CONFIG at the crop's width, cx shifted by x0, 512 tracks in
+    12x12 bins; written to `path`."""
+    with open(os.path.join(ROOT, KITTI_CONFIG)) as f:
+        text = f.read()
+    subs = {
+        r"(Camera\.(left|right)\.width): \d+": rf"\1: {CLI_CROP_W}",
+        r"(Camera\.(left|right)\.cx): [\d.]+": rf"\1: {KITTI_CX - x0}",
+        r"(feature_extractor\.n_features): \d+": r"\1: 512",
+        r"(feature_extractor\.n_bins_u): \d+": r"\1: 12",
+    }
+    for pat, rep in subs.items():
+        text, n = re.subn(pat, rep, text)
+        assert n, pat
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def kitti_layouts(work: str, frames) -> dict:
+    """The corridor frames as KITTI sequences under `work`:
+    {"full": (root, config), "crop": (root, config)}."""
+    left, right, poses = frames["main"]
+    x0 = (left.shape[2] - CLI_CROP_W) // 2
+    crop = slice(x0, x0 + CLI_CROP_W)
+    return {
+        "full": (write_kitti_layout(os.path.join(work, "kitti_full"), left, right, poses, KITTI_FX, KITTI_CX,
+                                    KITTI_CY, KITTI_BASELINE), os.path.join(ROOT, KITTI_CONFIG)),
+        "crop": (write_kitti_layout(os.path.join(work, "kitti_crop"), left[:, :, crop], right[:, :, crop], poses,
+                                    KITTI_FX, KITTI_CX - x0, KITTI_CY, KITTI_BASELINE),
+                 crop_config(os.path.join(work, "kitti_crop.yaml"), x0)),
+    }
+
+
+@contextlib.contextmanager
+def frame_launch_log():
+    """While the block runs: the KLT launches and replenishes of every
+    StereoVO.track_stereo_images / track_stereo_batch call, [{klt_pyr,
+    klt_scale, replenish, frames}], and the StereoVO the calls ran on
+    (log[i]["vo"])."""
+    from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    log, rep = [], [0]
+    orig = {n: getattr(StereoVO, n) for n in ("track_stereo_images", "track_stereo_batch", "_replenish")}
+
+    def counted_rep(self, *a, **kw):
+        rep[0] += 1
+        return orig["_replenish"](self, *a, **kw)
+
+    def logged(name):
+        def run(self, *a, **kw):
+            before = dict(KK.LAUNCHES)
+            rep[0] = 0
+            out = orig[name](self, *a, **kw)
+            frames = len(out) if name == "track_stereo_batch" else 1
+            log.append(dict({k: KK.LAUNCHES[k] - before[k] for k in before}, replenish=rep[0], frames=frames,
+                            vo=self))
+            return out
+        return run
+
+    StereoVO._replenish = counted_rep
+    StereoVO.track_stereo_images = logged("track_stereo_images")
+    StereoVO.track_stereo_batch = logged("track_stereo_batch")
+    try:
+        yield log
+    finally:
+        for n, f in orig.items():
+            setattr(StereoVO, n, f)
+
+
+def cli_path(frames, card) -> dict:
+    """Phase 10: the run_vo CLI on the corridor frames written as KITTI
+    sequences: full width per frame (--stage-timing) and with --batch
+    CLI_BATCH, and the crop per frame; then the mono CLI on the synthetic
+    world. Returns the launch counts."""
+    from visual_odometry_ros_tpu_torch import run_vo
+    from visual_odometry_ros_tpu_torch.io.trajectory import load_kitti_trajectory
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    work = os.path.join(ROOT, "build", "chip_smoke_cli")
+    t = time.perf_counter()
+    layouts = kitti_layouts(work, frames)
+    print(f"cli: wrote {N_MAIN} KITTI stereo pairs at full width and cropped in {time.perf_counter() - t:.1f} s")
+    runs, total = {}, {k: 0 for k in KK.LAUNCHES}
+    for tag, layout, extra in (("full", "full", ["--stage-timing"]), ("full_batch", "full", ["--batch", str(CLI_BATCH)]),
+                               ("crop", "crop", [])):
+        root, cfg = layouts[layout]
+        out = os.path.join(work, tag)
+        KK.reset_launch_counts()
+        with frame_launch_log() as log:
+            summary = run_vo.main(["--dataset", "kitti", "--root", root, "--config", cfg, "--mode", "stereo",
+                                   "--quiet", "--out", out] + extra)
+        launches = launched(f"CLI {tag}")
+        for k in total:
+            total[k] += launches[k]
+        vo = log[0]["vo"]
+        log = [{k: v for k, v in e.items() if k != "vo"} for e in log]
+        n_tracked = N_MAIN - 1
+        # A tracked frame: one klt_pyr for the track climb and one for the
+        # stereo pass, one more per replenish; one klt_scale.
+        if "batch" not in tag:
+            for e in log[1:]:
+                assert e["klt_scale"] == 1 and e["klt_pyr"] == 2 + e["replenish"], f"CLI KLT launches of a frame: {e}"
+        n_rep = sum(e["replenish"] for e in log)
+        assert launches["klt_scale"] == n_tracked and launches["klt_pyr"] == 2 * n_tracked + n_rep, (
+            f"CLI {tag}: launches {launches} with {n_rep} replenishes over {n_tracked} tracked frames")
+        assert not any(s.get("recovered", 0) for s in vo.stats_log), f"CLI {tag}: recovery fired"
+        with open(os.path.join(out, "stats.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        assert len(recs) == N_MAIN == summary["frames"], f"CLI {tag}: {len(recs)} stats records"
+        _, traj = load_kitti_trajectory(os.path.join(out, "frame_poses.txt"))
+        assert traj.shape == (N_MAIN, 4, 4) and np.isfinite(traj).all(), f"CLI {tag}: bad trajectory"
+        keys = ("time_track", "time_stereo", "time_pose", "time_new", "time_ba")
+        timed = {k: [r["exec"][k] for r in recs if r["exec"][k] > 0] for k in keys}
+        med = {k: statistics.median(v) for k, v in timed.items() if v}
+        runs[tag] = dict(summary=summary, traj=traj)
+        print(json.dumps({"path": f"run_vo kitti {tag}", "summary": summary, "launches": launches,
+                          "calls": log, "stage_ms_median": med, "card": card}))
+        print(f"time CLI {tag}: {summary['fps']:.2f} frames/s over {N_MAIN} frames "
+              f"(mean {summary['mean_time_total_ms']:.1f} ms, p95 {summary['p95_time_total_ms']:.1f} ms per frame"
+              f"{'; stage medians ' + json.dumps(med) if med else ''}); on {card}")
+    full, crop = runs["full"]["summary"], runs["crop"]["summary"]
+    dpos = float(np.abs(runs["full_batch"]["traj"][:, :3, 3] - runs["full"]["traj"][:, :3, 3]).max())
+    print(json.dumps({"cli_kitti": {
+        "full_ate_m": full["ate_rmse"], "full_ate_plain_m": CLI_PLAIN_ATE_M, "full_keyframes": full["keyframes"],
+        "full_keyframes_plain": CLI_PLAIN_KEYFRAMES, "crop_ate_m": crop["ate_rmse"], "crop_ate_ref_m": CLI_REF_ATE_M,
+        "crop_keyframes": crop["keyframes"], "crop_keyframes_ref": CLI_REF_KEYFRAMES,
+        "batch_vs_per_frame_max_m": dpos}}))
+    for name, got, ate_ref, kf_ref in (("full width", full, CLI_PLAIN_ATE_M, CLI_PLAIN_KEYFRAMES),
+                                       ("crop", crop, CLI_REF_ATE_M, CLI_REF_KEYFRAMES)):
+        assert got["ate_rmse"] <= 3 * ate_ref, f"CLI {name}: ATE {got['ate_rmse']:.4f} m above 3x {ate_ref}"
+        assert abs(got["keyframes"] - kf_ref) <= 1, f"CLI {name}: {got['keyframes']} keyframes, reference {kf_ref}"
+    assert runs["full_batch"]["summary"]["keyframes"] == full["keyframes"], "CLI batch and per-frame keyframes differ"
+    assert dpos <= CLI_BATCH_TOL_M, f"CLI batch and per-frame positions differ by {dpos:.2e} m"
+
+    # The mono CLI on the synthetic two-plane world.
+    KK.reset_launch_counts()
+    t = time.perf_counter()
+    summary = run_vo.main(["--dataset", "synthetic", "--mode", "mono", "--frames", str(CLI_MONO_FRAMES),
+                           "--out", os.path.join(work, "mono"), "--quiet"])
+    launches = launched("CLI mono")
+    for k in total:
+        total[k] += launches[k]
+    print(json.dumps({"path": "run_vo synthetic mono", "summary": summary, "launches": launches,
+                      "ate_post_init_ref_m": CLI_MONO_REF_ATE_M, "wall_s": time.perf_counter() - t, "card": card}))
+    assert summary["frames"] == CLI_MONO_FRAMES, summary
+    assert summary["ate_rmse_post_init"] <= 3 * CLI_MONO_REF_ATE_M, (
+        f"mono CLI post-init ATE {summary['ate_rmse_post_init']:.4f} m above 3x {CLI_MONO_REF_ATE_M}")
+    return total
+
+
+def dist_ba_path(card) -> dict:
+    """Phase 11: make_distributed_ba over a 1-rank NCCL group against the
+    single-device solve at dryrun_multichip's problem."""
+    import torch
+    import torch.distributed as dist
+
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+    from visual_odometry_ros_tpu_torch.parallel import dist_ba
+    from visual_odometry_ros_tpu_torch.parallel import multihost as MH
+
+    rdv = os.path.join(ROOT, "build", "chip_smoke_ba_rendezvous")
+    os.makedirs(os.path.dirname(rdv), exist_ok=True)
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    dev = MH.init_worker("file://" + rdv, 1, 0, backend="nccl")
+    try:
+        group = MH.global_mesh()
+        prob_np, fx, fy, cx, cy, T_rl = MH.dryrun_problem_np()
+        local = MH.host_tree(prob_np, group, dist_ba._sharded_specs()[0], dev)
+        T_rl = torch.as_tensor(T_rl, device=dev)
+        params = BA.BAParams(iters=BA_ITERS)
+        solve = dist_ba.make_distributed_ba(group, params)
+        full = BA.BAProblem(*(torch.as_tensor(a, device=dev) for a in prob_np))
+        info_d, info_s = {}, {}
+        res = solve(local, fx, fy, cx, cy, T_rl, info_d)
+        ref = BA.ba_solve_impl(full, fx, fy, cx, cy, T_rl, params, info=info_s)
+        row = {
+            "problem": "dryrun_multichip", "K": int(full.T_cw.shape[0]), "M": int(full.Xw.shape[0]),
+            "ranks": dist.get_world_size(group), "backend": dist.get_backend(group),
+            "d_T_cw": float((res.T_cw - ref.T_cw).abs().max()), "d_Xw_m": float((res.Xw - ref.Xw).abs().max()),
+            "d_err_px": abs(float(res.mean_err_px) - float(ref.mean_err_px)),
+            "mean_err_px": float(res.mean_err_px), "mean_err0_px": float(res.mean_err0_px),
+            "n_obs": [int(res.n_obs), int(ref.n_obs)], "iters": [info_d["iters"], info_s["iters"]],
+            "ms_per_solve": cuda_ms(lambda: solve(local, fx, fy, cx, cy, T_rl), reps=10, warmup=2),
+            "single_ms_per_solve": cuda_ms(lambda: BA.ba_solve_impl(full, fx, fy, cx, cy, T_rl, params),
+                                           reps=10, warmup=2),
+            "card": card,
+        }
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"dist_ba": row}))
+    print(f"time distributed BA (1 NCCL rank, K = {row['K']}, M = {row['M']}, {BA_ITERS} iterations): "
+          f"{row['ms_per_solve']:.2f} ms per solve, single-device {row['single_ms_per_solve']:.2f} ms "
+          f"(CUDA events); on {card}")
+    assert row["d_T_cw"] <= BA_TOL["T_cw"] and row["d_Xw_m"] <= BA_TOL["Xw"] and row["d_err_px"] <= BA_TOL["err"], row
+    # The error rises over the solve, in the JAX package too: the problem's
+    # right rows repeat the left pixels (tests/test_torch_dist_ba.py holds
+    # the port's solve of it to the JAX package's).
+    assert row["n_obs"][0] == row["n_obs"][1] and row["iters"][0] == row["iters"][1], row
+    assert np.isfinite(row["mean_err_px"]), row
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -956,9 +1334,25 @@ def main() -> int:
     serving = serving_path(frames, dev, card)
     rectification_path(frames, dev, card)
     mono = mono_path(frames, dev, card)
-    launches = {k: serving[k] + mono[k] for k in serving}
 
-    # 9. result ------------------------------------------------------------
+    # 9. image-level KLT ----------------------------------------------------
+    api_sites = image_api_sites(pairs, dev)
+    api, api_rows = image_api_path(api_sites)
+    cases["klt_pyr"] += api_rows
+    api_times = call_site_times(api_sites, card)
+    for name, row in api_times.items():
+        print(f"time {name}: device {row['ms']:.4f} ms per launch (100 back-to-back launches), bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']}, plain {row['plain_ms']:.4f} ms, call host "
+              f"{row['call_host_us']:.1f} us (N={N_FEAT}) on {card}")
+
+    # 10. the CLI -----------------------------------------------------------
+    cli = cli_path(frames, card)
+
+    # 11. distributed BA ----------------------------------------------------
+    dist_ba_path(card)
+    launches = {k: serving[k] + mono[k] + api[k] + cli[k] for k in serving}
+
+    # 12. result ------------------------------------------------------------
     replaces = {
         "klt_pyr": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:380",
         "klt_scale": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:621",

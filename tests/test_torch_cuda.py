@@ -490,3 +490,90 @@ def test_mono_pipeline_on_cuda_kernel_and_plain_legs(dev):
     path = np.sum(np.linalg.norm(np.diff(poses[b:, :3, 3], axis=0), axis=1))
     for vo, _ in runs.values():
         assert tio.ate_rmse(np.stack(vo.trajectory)[b:], poses[b:], align="sim3") < 0.08 * path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["track", "track_with_prior", "track_bidirectional"])
+def test_image_level_klt_is_one_launch_and_agrees(dev, name):
+    """ops/klt's image-level calls on the kernel leg: exactly one klt_pyr
+    launch each (the backward climb fused for the bidirectional call), and
+    the same result as the call on CPU tensors (the plain versions)."""
+    a, b = _pair(dev)
+    p0 = _grid(dev, margin=12)
+    valid = torch.ones(len(p0), dtype=torch.bool, device=dev)
+    kp = KLT.KLTParams(levels=3, use_kernel=True)
+    args = (a, b, p0) if name == "track" else (a, b, p0, (p0 + torch.tensor([1.5, -0.5], device=dev)).contiguous())
+    KK.reset_launch_counts()
+    p_k, ok_k = getattr(KLT, name)(*args, valid, kp)
+    torch.cuda.synchronize()
+    assert KK.LAUNCHES == {"klt_pyr": 1, "klt_scale": 0}
+    p_r, ok_r = getattr(KLT, name)(*(x.cpu() for x in args), valid.cpu(), kp)
+    agree(p_k.cpu(), ok_k.cpu(), p_r, ok_r, min_live=0.5)
+
+
+def _tiny_kitti(root):
+    """A 320x240 KITTI layout of the plane world (6 frames, 0.22 m/frame)
+    and a reference-format YAML sized for it."""
+    import chip_smoke as CS
+
+    world = tio.PlaneSequence(width=320, height=240, fx=250.0, fy=250.0, cx=160.0, cy=120.0, z0=14.0, sx=0.3,
+                              sy=0.15, baseline=0.5)
+    poses = tio.forward_trajectory(6, step=0.22, yaw_rate=0.0015)
+    pairs = [[np.clip(x, 0, 255).astype(np.uint8) for x in world.stereo_pair(T.astype(np.float64))] for T in poses]
+    CS.write_kitti_layout(str(root), [p[0] for p in pairs], [p[1] for p in pairs], poses, 250.0, 160.0, 120.0, 0.5)
+    cfg = root / "tiny.yaml"
+    cam = "".join(f"Camera.{s}.{k}: {v}\n" for s in ("left", "right")
+                  for k, v in (("fx", 250.0), ("fy", 250.0), ("cx", 160.0), ("cy", 120.0), ("width", 320), ("height", 240)))
+    cfg.write_text("%YAML:1.0\nflagDoUndistortion: 0\n" + cam + "T_lr: !!opencv-matrix\n  rows: 4\n  cols: 4\n"
+                   "  dt: f\n  data: [1,0,0,0.5, 0,1,0,0, 0,0,1,0, 0,0,0,1]\nfeature_tracker.max_level: 3\n"
+                   "feature_extractor.n_features: 256\nfeature_extractor.n_bins_u: 16\nfeature_extractor.n_bins_v: 8\n"
+                   "feature_extractor.thres_fastscore: 8.0\n")
+    return str(root), str(cfg), poses
+
+
+@pytest.mark.cuda
+def test_cli_on_a_tiny_kitti_layout_on_the_card(dev, tmp_path):
+    """run_vo on the card by default: through both kernels, one stats record
+    per frame, and the CPU run's poses (plain kernel versions) to 5 mm."""
+    from visual_odometry_ros_tpu_torch import run_vo
+
+    root, cfg, poses = _tiny_kitti(tmp_path / "kitti")
+    base = ["--dataset", "kitti", "--root", root, "--config", cfg, "--mode", "stereo", "--quiet"]
+    KK.reset_launch_counts()
+    s = run_vo.main(base + ["--out", str(tmp_path / "card")])
+    assert KK.LAUNCHES["klt_pyr"] > 0 and KK.LAUNCHES["klt_scale"] == 5
+    run_vo.main(base + ["--out", str(tmp_path / "cpu"), "--device", "cpu"])
+    assert s["frames"] == 6 and len((tmp_path / "card" / "stats.jsonl").read_text().splitlines()) == 6
+    card, cpu = (np.loadtxt(tmp_path / d / "frame_poses.txt") for d in ("card", "cpu"))
+    np.testing.assert_allclose(card, cpu, atol=5e-3, rtol=0)
+    assert s["ate_rmse"] < 0.05 * 0.22 * 5 and s["mean_n_final"] > 30
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_ba_matches_single_device(dev, tmp_path):
+    """make_distributed_ba over a one-rank NCCL group at dryrun_multichip's
+    problem shape (M cut to 1024): test_dist_ba.py's tolerances."""
+    import torch.distributed as dist
+
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+    from visual_odometry_ros_tpu_torch.parallel import dist_ba
+    from visual_odometry_ros_tpu_torch.parallel import multihost as MH
+
+    rank_dev = MH.init_worker(f"file://{tmp_path / 'rdv'}", 1, 0, backend="nccl")
+    try:
+        assert rank_dev.type == "cuda" and dist.get_backend() == "nccl"
+        prob, fx, fy, cx, cy, T_rl = MH.dryrun_problem_np(M=1024)
+        group = MH.global_mesh()
+        local = MH.host_tree(prob, group, dist_ba._sharded_specs()[0], rank_dev)
+        T_rl = torch.as_tensor(T_rl, device=rank_dev)
+        params = BA.BAParams(iters=3)
+        info_d, info_s = {}, {}
+        res = dist_ba.make_distributed_ba(group, params)(local, fx, fy, cx, cy, T_rl, info_d)
+        ref = BA.ba_solve_impl(BA.BAProblem(*(torch.as_tensor(a, device=rank_dev) for a in prob)), fx, fy, cx, cy,
+                               T_rl, params, info=info_s)
+    finally:
+        dist.destroy_process_group()
+    torch.testing.assert_close(res.T_cw, ref.T_cw, atol=2e-4, rtol=0)
+    torch.testing.assert_close(res.Xw, ref.Xw, atol=5e-3, rtol=0)
+    assert abs(float(res.mean_err_px) - float(ref.mean_err_px)) < 1e-3
+    assert int(res.n_obs) == int(ref.n_obs) and info_d == info_s

@@ -4,6 +4,8 @@ in interpret mode, on CPU. The kernels themselves are checked against
 these plain versions on the card by tests/test_torch_cuda.py.
 """
 
+import importlib.util
+import os
 from functools import partial
 
 import jax
@@ -399,3 +401,65 @@ def test_pyr_track_kernel_leg_equals_level_composition(epi1d):
     ok_old = f[1] & b[1] & (f[2] < params.max_err) & (fb2 < (params.fb_thresh * 5.0) ** 2) & TK._in_border(
         f[0], (120, 160), params.border)
     assert torch.equal(p1_new, f[0]) and torch.equal(ok_new, ok_old) and int(ok_old.sum()) >= 30
+
+
+# ----------------------------------------------------------------------------
+# The image-level API (`track`, `track_with_prior`, `track_bidirectional`):
+# both pyramids built from the two images, then one pyramid track, on
+# tests/test_klt.py's inputs. Kernel leg against the JAX package's
+# use_pallas=True (Pallas in interpret mode), plain leg against its jnp leg.
+# ----------------------------------------------------------------------------
+
+_kspec = importlib.util.spec_from_file_location("klt_fixtures", os.path.join(os.path.dirname(__file__), "test_klt.py"))
+_kfix = importlib.util.module_from_spec(_kspec)
+_kspec.loader.exec_module(_kfix)
+
+
+def api_case(name):
+    """(img0, img1, p0, prior or None, params kwargs) of test_klt.py's
+    test_track_small_shift, test_track_with_prior_converges_fast and
+    test_bidirectional_rejects_occluded (its `rng` fixture: seed 7)."""
+    rng = np.random.default_rng(7)
+    img0 = _kfix._textured_image(rng)
+    p0 = _kfix._grid_points(*img0.shape)
+    if name == "track":
+        return img0, _kfix._shift_image(img0, 3.3, -2.1), p0, None, dict(levels=3, iters=15)
+    if name == "track_with_prior":
+        return img0, _kfix._shift_image(img0, 22.0, -17.0), p0, p0 + np.float32([21.0, -16.2]), dict(levels=2, iters=10)
+    img1 = _kfix._shift_image(img0, 4.0, 1.0)
+    img1[100:160, 100:180] = rng.uniform(0, 255, (60, 80)).astype(np.float32)
+    return img0, img1, p0, p0, {}
+
+
+@pytest.mark.parametrize("leg", ["kernel", "plain"])
+@pytest.mark.parametrize("name", ["track", "track_with_prior", "track_bidirectional"])
+def test_image_level_api_matches_jax(monkeypatch, name, leg):
+    monkeypatch.setattr(klt_pallas_fp, "track_level_fp", partial(klt_pallas_fp.track_level_fp, interpret=True))
+    img0, img1, p0, prior, kw = api_case(name)
+    valid = np.ones(len(p0), bool)
+    pj_ = JK.KLTParams(**kw, use_pallas=leg == "kernel")
+    pt_ = TK.KLTParams(**kw, use_kernel=leg == "kernel")
+    calls = []
+    for wrapper in ("track_pyr", "track_pyr_bidir"):
+        orig = getattr(KK, wrapper)
+        monkeypatch.setattr(KK, wrapper, lambda *a, _o=orig, _w=wrapper, **k: calls.append(_w) or _o(*a, **k))
+    jargs = [jnp.asarray(img0), jnp.asarray(img1), jnp.asarray(p0)]
+    targs = [T(img0), T(img1), T(p0)]
+    if prior is not None:
+        jargs.append(jnp.asarray(prior))
+        targs.append(T(prior))
+    pj, oj = getattr(JK, name)(*jargs, jnp.asarray(valid), pj_)
+    pt, ot = getattr(TK, name)(*targs, T(valid), pt_)
+    # The kernel leg is one wrapper call (one klt_pyr launch on the card),
+    # the backward climb fused into it for the bidirectional call.
+    want = {"kernel": ["track_pyr_bidir" if name == "track_bidirectional" else "track_pyr"], "plain": []}[leg]
+    assert calls == want
+    np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
+    assert ot.sum() >= 0.6 * len(p0)
+    # Levels of float32 iterates: 1e-3 px. On the kernel leg the Pallas
+    # kernel's in-window math rounds differently, which can move the
+    # |step| < eps stop test by one Gauss-Newton step (< eps = 0.03 px) at
+    # a level (here 3 of 31 features by up to 1.2e-3 px): 1e-3 px median,
+    # eps at most.
+    d = np.linalg.norm(pt.numpy() - np.asarray(pj), axis=-1)[ot.numpy()]
+    assert np.median(d) <= 1e-3 and d.max() <= (pt_.eps if leg == "kernel" else 1e-3), (np.median(d), d.max())

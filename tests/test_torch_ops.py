@@ -479,3 +479,75 @@ def test_forward_trajectory_matches_jax():
     for kw in (dict(), dict(step=0.22, yaw_rate=0.0015), dict(step=0.8, yaw_rate=0.0015, lateral=0.01)):
         # The same float32 se3_exp in another op order: a few ulps of metres-size entries.
         np.testing.assert_allclose(tft(12, **kw), jft(12, **kw), atol=1e-5)
+
+
+# ----------------------------------------------------------------------------
+# Small library functions: blur, Shi-Tomasi, depth from disparity, pixel
+# triangulation, parallax, stacked sampling, the camera's distortion flag
+# ----------------------------------------------------------------------------
+
+
+def _small_fn_case(name):
+    """(port result, JAX result, atol) of one small function on seeded inputs."""
+    from visual_odometry_ros_tpu import camera as JCAM
+    from visual_odometry_ros_tpu_torch import camera as TCAM
+
+    rng = np.random.default_rng(11)
+    img = smooth_image(37, 53, 12)
+    if name == "gaussian_blur5":  # same taps and order on edge-replicated views
+        return N(TP.gaussian_blur5(T(img))), np.asarray(JP.gaussian_blur5(J(img))), 1e-4
+    if name == "shi_tomasi_response":  # squared gradients of [0, 255] data: relative 1e-6
+        t, j = N(TF.shi_tomasi_response(T(img), 2)), np.asarray(JF.shi_tomasi_response(J(img), 2))
+        return t, j, 1e-6 * float(np.abs(j).max())
+    if name == "disparity_to_depth":
+        disp = np.float32(rng.uniform(-1, 40, (9, 11)))
+        valid = disp > 0.5
+        jr = JSD.DisparityResult(J(disp), J(valid), J(disp), J(disp), J(valid))
+        tr = TSD.DisparityResult(T(disp), T(valid), T(disp), T(disp), T(valid))
+        return N(TSD.disparity_to_depth(tr, 386.0)), np.asarray(JSD.disparity_to_depth(jr, 386.0)), 1e-4
+    if name == "stereo_depth_from_disparity":
+        disp = np.float32(np.concatenate([rng.uniform(0.01, 60, 40), [0.0, 1e-3, -2.0, 5e-4]]))
+        zt, vt = TTRI.stereo_depth_from_disparity(718.856, 0.537, T(disp))
+        zj, vj = JTRI.stereo_depth_from_disparity(718.856, 0.537, J(disp))
+        np.testing.assert_array_equal(N(vt), np.asarray(vj))
+        return N(zt), np.asarray(zj), 1e-3  # depths up to 4e4 m: float32 ulps
+    if name == "parallax_angle":
+        r0, r1 = (np.float32(rng.normal(0, 1, (30, 3)) + [0, 0, 3]) for _ in range(2))
+        R = np.asarray(JG.so3_exp(J(np.float32([0.02, -0.05, 0.01]))))
+        t = np.stack([N(TTRI.parallax_angle(T(r0), T(r1))), N(TTRI.parallax_angle(T(r0), T(r1), T(R)))])
+        j = np.stack([np.asarray(JTRI.parallax_angle(J(r0), J(r1))), np.asarray(JTRI.parallax_angle(J(r0), J(r1), J(R)))])
+        return t, j, 1e-5  # arccos near 1 amplifies float32 rounding
+    if name == "triangulate_pixels":
+        X = np.stack([rng.uniform(-3, 3, 32), rng.uniform(-2, 2, 32), rng.uniform(4, 25, 32)], -1).astype(np.float32)
+        T10 = np.asarray(JG.se3_exp(J(np.float32([-0.5, 0.02, 0.1, 0.01, -0.02, 0.005]))))
+        X1 = X @ T10[:3, :3].T + T10[:3, 3]
+        p0 = X[:, :2] / X[:, 2:] * 500.0 + [320.0, 240.0]
+        p1 = X1[:, :2] / X1[:, 2:] * 480.0 + [300.0, 250.0]
+        cams = [(JCAM.make_camera(500.0, 500.0, 320.0, 240.0), TCAM.make_camera(500.0, 500.0, 320.0, 240.0)),
+                (JCAM.make_camera(480.0, 480.0, 300.0, 250.0), TCAM.make_camera(480.0, 480.0, 300.0, 250.0))]
+        t = TTRI.triangulate_pixels(T(np.float32(p0)), T(np.float32(p1)), cams[0][1], cams[1][1], T(T10))
+        j = JTRI.triangulate_pixels(J(np.float32(p0)), J(np.float32(p1)), cams[0][0], cams[1][0], J(T10))
+        np.testing.assert_allclose(N(t[0]), X, atol=1e-2)  # noise-free views recover the points
+        return np.stack([N(a) for a in t]), np.stack([np.asarray(a) for a in j]), 1e-3  # DLT of 25 m depths
+    if name == "bilinear_sample_stack":
+        imgs = np.stack([smooth_image(20, 24, s) for s in (13, 14, 15)])
+        pts = np.float32(rng.uniform(-2, 25, (6, 7, 2)))
+        vt, mt = TI.bilinear_sample_stack(T(imgs), T(pts), 1.0)
+        vj, mj = JI.bilinear_sample_stack(J(imgs), J(pts), 1.0)
+        np.testing.assert_array_equal(N(mt), np.asarray(mj))
+        assert vt.shape == (3, 6, 7)
+        return N(vt), np.asarray(vj), 1e-4
+    if name == "has_distortion":
+        t = TCAM.make_camera(500.0, 500.0, 320.0, 240.0).has_distortion
+        j = JCAM.make_camera(500.0, 500.0, 320.0, 240.0).has_distortion
+        return np.asarray(t), np.asarray(j), 0.0
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["gaussian_blur5", "shi_tomasi_response", "disparity_to_depth",
+                                  "stereo_depth_from_disparity", "parallax_angle", "triangulate_pixels",
+                                  "bilinear_sample_stack", "has_distortion"])
+def test_small_functions_match_jax(name):
+    t, j, atol = _small_fn_case(name)
+    assert t.shape == j.shape
+    np.testing.assert_allclose(t, j, atol=atol, rtol=0)

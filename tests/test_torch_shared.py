@@ -89,6 +89,14 @@ import visual_odometry_ros_tpu_torch.models.stereo_vo
 import visual_odometry_ros_tpu_torch.models.mono_vo
 import visual_odometry_ros_tpu_torch.ops.epipolar
 import visual_odometry_ros_tpu_torch.io.checkpoint
+import visual_odometry_ros_tpu_torch.io.datasets
+import visual_odometry_ros_tpu_torch.io.statistics
+import visual_odometry_ros_tpu_torch.utils.pose3d
+import visual_odometry_ros_tpu_torch.runtime.ingest
+import visual_odometry_ros_tpu_torch.parallel.mesh
+import visual_odometry_ros_tpu_torch.parallel.dist_ba
+import visual_odometry_ros_tpu_torch.parallel.multihost
+import visual_odometry_ros_tpu_torch.run_vo
 from visual_odometry_ros_tpu_torch.io import VOConfig, forward_trajectory, PlaneSequence
 assert VOConfig().tracker.max_iter > 0 and forward_trajectory(3).shape == (3, 4, 4)
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "visual_odometry_ros_tpu"))

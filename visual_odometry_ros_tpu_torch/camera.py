@@ -49,6 +49,10 @@ class Camera:
             torch.stack([z, z, o]),
         ])
 
+    @property
+    def has_distortion(self) -> bool:
+        return True  # as the reference: callers decide from `dist` if needed
+
 
 def make_camera(fx, fy, cx, cy, dist=None, width=0, height=0, device="cpu") -> Camera:
     dist = torch.zeros(5, dtype=torch.float32) if dist is None else dist

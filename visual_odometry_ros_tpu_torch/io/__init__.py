@@ -1,9 +1,10 @@
 """Data, configuration and evaluation helpers of the port.
 
-`config.py`, `io/synthetic.py`, `io/trajectory.py` and `io/visualize.py` are
-the port's own copies of the JAX package's numpy-only modules; the two
-trajectory generators of `synthetic.py` are built on the port's `se3_exp`.
-Nothing here imports or loads a file of the JAX package.
+`config.py`, `io/synthetic.py`, `io/trajectory.py`, `io/visualize.py`,
+`io/datasets.py` and `io/statistics.py` are the port's own copies of the JAX
+package's numpy-only modules; the two trajectory generators of
+`synthetic.py` are built on the port's `se3_exp`. Nothing here imports or
+loads a file of the JAX package.
 """
 
 from __future__ import annotations

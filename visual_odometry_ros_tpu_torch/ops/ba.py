@@ -1,10 +1,13 @@
 """Sliding-window bundle adjustment: Schur complement over a dense [M, K]
-observation incidence, single device.
+observation incidence.
 
-Counterpart of `visual_odometry_ros_tpu/ops/ba.py` (the `axis_name` psum
-path comes with `parallel/`). Same anchoring at the first window keyframe,
-same Huber IRLS rows (left and right camera), same Jacobi-equilibrated
-float32 Cholesky of the reduced camera system — no float64 anywhere.
+Counterpart of `visual_odometry_ros_tpu/ops/ba.py`. Same anchoring at the
+first window keyframe, same Huber IRLS rows (left and right camera), same
+Jacobi-equilibrated float32 Cholesky of the reduced camera system — no
+float64 anywhere. With a process group (`group=`, the counterpart of the
+reference's `axis_name`), each rank holds a shard of the landmark axis and
+the sums that cross landmarks are all-reduced over the group
+(`parallel/dist_ba.py`).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..utils import geometry as geo
 from ..utils.robust import huber_weight
@@ -220,9 +224,28 @@ def ba_accept(mean_err_px, mean_err0_px, reproj_thresh: float):
     )
 
 
-def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = BAParams()) -> BAResult:
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of x over the ranks of `group` (x itself without a group)."""
+    if group is None:
+        return x
+    x = x.clone(memory_format=torch.contiguous_format)  # NCCL takes dense tensors only
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = BAParams(),
+                  group=None, info: dict | None = None) -> BAResult:
     """Up to `params.iters` damped GN iterations of sliding-window BA; stops
-    early once the largest pose update is below 1e-5."""
+    early once the largest pose update is below 1e-5. `info`, where given,
+    receives the number of iterations run under "iters".
+
+    With a process group, the landmark rows of `problem` (Xw, pts, mask,
+    pts_r, mask_r, lm_valid) are this rank's shard and T_cw, kf_valid are
+    replicated. Assembly, elimination and back-substitution stay
+    shard-local; the reduced camera system (S, s), the divergence count and
+    the error sums are all-reduced. Every rank then solves the same system
+    the same way, so dx, the stop test and the loop's length agree across
+    ranks; dy is shard-local and must not feed the stop test."""
     K = problem.T_cw.shape[0]
     dev = problem.T_cw.device
     obs_mask = problem.mask & problem.kf_valid[None, :]
@@ -242,32 +265,39 @@ def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = B
             T_cr_e, Xr_e, problem.pts, mask, problem.pts_r, mask_r, fx, fy, cx, cy, T_rl, 1e9
         )
         rn_ = torch.sqrt(torch.sum(r_[..., :2] ** 2, dim=-1))
-        return torch.sum(rn_ * mask) / torch.clamp(torch.sum(mask), min=1)
+        return _all_reduce(torch.sum(rn_ * mask), group) / torch.clamp(_all_reduce(torch.sum(mask), group), min=1)
 
     mean_err0 = masked_mean_err(T_cr, Xr)
-    for _ in range(params.iters):
+    it = 0
+    while it < params.iters:
         w, r, Q, Rj = build_observation_terms(
             T_cr, Xr, problem.pts, mask, problem.pts_r, mask_r, fx, fy, cx, cy, T_rl,
             params.huber_delta,
         )
         A, a, C, b, B = assemble_normal_blocks(w, r, Q, Rj)
         S, s, Cinv, _ = schur_reduce(A, a, C, b, B, params.lam)
+        S, s = _all_reduce(S, group), _all_reduce(s, group)
         dx = solve_reduced(S, s, opt_mask)
         dy = torch.where(lm_active[:, None], back_substitute(Cinv, b, B, dx), 0.0)
+        dy_bad = _all_reduce((~torch.all(torch.isfinite(dy))).to(torch.int32), group) > 0
         bad = (
             ~torch.all(torch.isfinite(dx))
-            | ~torch.all(torch.isfinite(dy))
+            | dy_bad
             | (torch.amax(torch.linalg.norm(dx[:, :3], dim=-1)) > params.max_trans_update)
         )
         dx = torch.where(bad, 0.0, dx)
         dy = torch.where(bad, 0.0, dy)
         T_cr = torch.where(opt_mask[:, None, None], geo.add_front_se3(T_cr, dx), T_cr)
         Xr = Xr + dy
+        it += 1
         if bool(torch.amax(torch.abs(dx)) < 1e-5):
             break
+    if info is not None:
+        info["iters"] = it
 
     T_cw_new = torch.where(opt_mask[:, None, None], geo.se3_project(T_cr @ T_rw), problem.T_cw)
     Xw_new = torch.where(lm_active[:, None], geo.transform_points(T_wr, Xr), problem.Xw)
     killed = lm_active & (torch.linalg.norm(Xr, dim=-1) > params.kill_dist)
     mean_err = masked_mean_err(T_cr, Xr)
-    return BAResult(T_cw_new, Xw_new, killed, mean_err, torch.sum(mask) + torch.sum(mask_r), mean_err0)
+    n_obs = _all_reduce(torch.sum(mask), group) + _all_reduce(torch.sum(mask_r), group)
+    return BAResult(T_cw_new, Xw_new, killed, mean_err, n_obs, mean_err0)

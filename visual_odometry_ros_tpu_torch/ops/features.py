@@ -51,6 +51,16 @@ def harris_response(img: torch.Tensor, radius: int = 2, k: float = 0.04) -> torc
     return det - k * tr * tr
 
 
+def shi_tomasi_response(img: torch.Tensor, radius: int = 2) -> torch.Tensor:
+    gx, gy = scharr_gradients(img)
+    sxx = box_filter(gx * gx, radius)
+    sxy = box_filter(gx * gy, radius)
+    syy = box_filter(gy * gy, radius)
+    tr = sxx + syy
+    dd = torch.sqrt(torch.clamp((sxx - syy) ** 2 + 4.0 * sxy * sxy, min=0.0))
+    return 0.5 * (tr - dd)
+
+
 def occupancy_grid(pts, valid, H: int, W: int, gh: int, gw: int) -> torch.Tensor:
     """[gh, gw] count of live features per bin."""
     bu = torch.clamp((pts[:, 0] / (W / gw)).to(torch.int64), 0, gw - 1)

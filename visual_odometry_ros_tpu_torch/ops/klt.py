@@ -18,6 +18,7 @@ import torch
 
 from ..utils.interp import bilinear_sample
 from . import klt_kernels as KK
+from .pyramid import build_pyramid_with_gradients
 
 
 class KLTParams(NamedTuple):
@@ -139,6 +140,34 @@ def _pyr_track(pyr0, pyr1, p0, p1_init, valid, params: KLTParams, track_levels: 
 def _in_border(p, shape, border):
     H, W = shape
     return (p[..., 0] >= border) & (p[..., 1] >= border) & (p[..., 0] < W - border) & (p[..., 1] < H - border)
+
+
+def _image_pyramids(img0, img1, params: KLTParams):
+    """Both images' pyramids (level 0 made contiguous, as the kernels read
+    it); the kernel leg reads level images only, so it skips the gradients."""
+    return tuple(build_pyramid_with_gradients(img.contiguous(), params.levels, not params.use_kernel)
+                 for img in (img0, img1))
+
+
+def track(img0, img1, p0, valid, params: KLTParams = KLTParams()):
+    """Forward pyramidal KLT from p0 (reference `track`). Returns (p1, ok)."""
+    return track_with_prior(img0, img1, p0, p0, valid, params)
+
+
+def track_with_prior(img0, img1, p0, p1_prior, valid, params: KLTParams = KLTParams()):
+    """Prior-seeded forward KLT on two images (reference `trackWithPrior`):
+    builds both pyramids, then one pyramid track (one `klt_pyr` launch on
+    the kernel leg). Returns (p1, ok)."""
+    return track_with_prior_pyr(*_image_pyramids(img0, img1, params), p0, p1_prior, valid, params)
+
+
+def track_bidirectional(img0, img1, p0, p1_prior, valid, params: KLTParams = KLTParams(),
+                        fb_scale: float = 1.0):
+    """Forward + backward KLT on two images with the fb-distance gate
+    (reference `trackBidirection[WithPrior]`; the prior-seeded variant is
+    fb_scale=5.0). One `klt_pyr` launch on the kernel leg, both climbs
+    fused. Returns (p1, ok)."""
+    return track_bidirectional_pyr(*_image_pyramids(img0, img1, params), p0, p1_prior, valid, params, fb_scale)
 
 
 def track_with_prior_pyr(pyr0, pyr1, p0, p1_prior, valid, params: KLTParams = KLTParams(),

@@ -42,6 +42,10 @@ def _sep_conv(img: torch.Tensor, kh, kw) -> torch.Tensor:
     return acc
 
 
+def gaussian_blur5(img: torch.Tensor) -> torch.Tensor:
+    return _sep_conv(img, _K5, _K5)
+
+
 def _decimate(x: torch.Tensor, dim: int) -> torch.Tensor:
     """out[i] = sum_k K5[k] * in[clip(2i + k - 2)] along `dim`."""
     n = x.shape[dim]

@@ -72,6 +72,11 @@ def zncc_disparity(left, right, max_disp: int = 64, radius: int = 4, min_zncc: f
     return DisparityResult(disp, valid, best_s, sigma, ambiguous)
 
 
+def disparity_to_depth(res: DisparityResult, fxb: float):
+    z = fxb / torch.clamp(res.disparity, min=1e-3)
+    return torch.where(res.valid, z, 0.0)
+
+
 def verify_disparity_zncc(left, right, pts_l, disp, valid, radius: int = 4, span: int = 32,
                           min_zncc: float = 0.5, peak_margin: float = 0.03,
                           agree_px: float = 1.5):

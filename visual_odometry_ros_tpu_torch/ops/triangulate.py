@@ -2,12 +2,15 @@
 
 Counterpart of `visual_odometry_ros_tpu/ops/triangulate.py`: the
 inhomogeneous DLT least-squares system (4 constraints, 3 unknowns) solved
-through the adjugate of its 3x3 normal matrix.
+through the adjugate of its 3x3 normal matrix. For rectified stereo,
+depth = fx * baseline / disparity.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..camera import pixel_to_normalized
 
 
 def _solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -55,3 +58,24 @@ def triangulate(xn0: torch.Tensor, xn1: torch.Tensor, T_10: torch.Tensor):
     Atb = torch.sum(A * b[..., None], dim=-2)
     X0 = _solve3x3(AtA, Atb)
     return X0, torch.sum(R * X0[..., None, :], dim=-1) + t
+
+
+def triangulate_pixels(p0, p1, cam0, cam1, T_10):
+    """Pixel-space convenience wrapper (undistorted pixels)."""
+    return triangulate(pixel_to_normalized(cam0, p0), pixel_to_normalized(cam1, p1), T_10)
+
+
+def stereo_depth_from_disparity(fx, baseline, disparity: torch.Tensor):
+    """Rectified-stereo closed form: z = fx * b / d, with validity mask."""
+    valid = disparity > 1e-3
+    z = fx * baseline / torch.where(valid, disparity, 1.0)
+    return torch.where(valid, z, 0.0), valid
+
+
+def parallax_angle(ray0: torch.Tensor, ray1: torch.Tensor, R_01: torch.Tensor | None = None):
+    """Angle between viewing rays; with R_01 the second ray is rotated into
+    the first camera's frame first."""
+    r0 = ray0 / torch.linalg.norm(ray0, dim=-1, keepdim=True)
+    r1 = ray1 if R_01 is None else ray1 @ R_01.T
+    r1 = r1 / torch.linalg.norm(r1, dim=-1, keepdim=True)
+    return torch.arccos(torch.clamp(torch.sum(r0 * r1, dim=-1), -1.0, 1.0))

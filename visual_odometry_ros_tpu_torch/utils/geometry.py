@@ -145,3 +145,84 @@ def add_front_se3(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
 def transform_points(T: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Apply SE3 to points: [..., 4, 4] x [..., N, 3] -> [..., N, 3]."""
     return X @ T[..., :3, :3].transpose(-1, -2) + T[..., :3, 3][..., None, :]
+
+
+# ----------------------------------------------------------------------------
+# Quaternions ([w, x, y, z])
+# ----------------------------------------------------------------------------
+
+
+def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def quat_to_rotation(q: torch.Tensor) -> torch.Tensor:
+    q = quat_normalize(q)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+        ],
+        dim=-2,
+    )
+
+
+def rotation_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Shepperd's method: the construction on the largest pivot, chosen per
+    element with the reference's tie rules (trace > 0 first, then m00 >= m11
+    and m00 >= m22, then m11 >= m22); the sign is canonical, w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS))
+
+    s0 = safe_sqrt(tr + 1.0) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], -1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], -1)
+    s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], -1)
+    s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], -1)
+
+    cond0 = tr > 0.0
+    cond1 = (m00 >= m11) & (m00 >= m22)
+    cond2 = m11 >= m22
+    q = torch.where(
+        cond0[..., None], q0, torch.where(cond1[..., None], q1, torch.where(cond2[..., None], q2, q3))
+    )
+    return quat_normalize(q * torch.where(q[..., :1] < 0, -1.0, 1.0))
+
+
+def rotvec_to_quat(w: torch.Tensor) -> torch.Tensor:
+    theta = torch.linalg.norm(w, dim=-1, keepdim=True)
+    half = theta * 0.5
+    k = torch.where(theta < 1e-6, 0.5 - theta * theta / 48.0, torch.sin(half) / torch.clamp(theta, min=_EPS))
+    return torch.cat([torch.cos(half), w * k], dim=-1)
+
+
+def quat_to_rotvec(q: torch.Tensor) -> torch.Tensor:
+    return so3_log(quat_to_rotation(q))

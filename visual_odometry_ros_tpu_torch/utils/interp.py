@@ -44,6 +44,13 @@ def bilinear_sample(img: torch.Tensor, pts: torch.Tensor, valid_border: float = 
     return top + dv * (bot - top), mask
 
 
+def bilinear_sample_stack(imgs: torch.Tensor, pts: torch.Tensor, valid_border: float = 0.0):
+    """Sample C images sharing one coordinate set: imgs [C, H, W], pts
+    [..., 2] -> (values [C, ...], mask [...])."""
+    vals = [bilinear_sample(im, pts, valid_border) for im in imgs]
+    return torch.stack([v for v, _ in vals]), vals[0][1]
+
+
 def sample_patches(img: torch.Tensor, centers: torch.Tensor, offsets: torch.Tensor):
     """P-point patches around N centers with a shared offset pattern.
     Returns (patches [N, P], mask [N, P])."""
