@@ -41,7 +41,12 @@ the final line):
      `track_image` until the bootstrap, 6 frames with `timed=True`, then
      `track_batch`; checks the bootstrap frame, keyframe steps and BA
      acceptance, sim3 ATE against the JAX package's CPU run
-     (tests/reference_mono_smoke.py) and KLT launches frame by frame;
+     (tests/reference_mono_smoke.py) and KLT launches frame by frame; then
+     the same frames with a flat grey stretch (frames 30-32): the 5-point
+     fallback and recovery must fire, recovery modes, first recovery frame
+     and post-recovery sim3 ATE against the JAX run of those frames; then
+     `_fallback_5pt` and `_recover` (modes 1 and 2) on the card against a
+     CPU copy of the same state with the same draws;
   9. image-level KLT: `ops/klt.track`, `track_with_prior` and
      `track_bidirectional` (default KLTParams, kernel leg) on corridor
      frames 10 -> 11 at N = 1024: one `klt_pyr` launch per call, each
@@ -50,19 +55,27 @@ the final line):
  10. the CLI (`python -m visual_odometry_ros_tpu_torch.run_vo`, called
      in-process): the 25 corridor frames of phases 4-5 written as a KITTI
      odometry sequence under build/, run with config/stereo/
-     kitti_00_stereo.yaml per frame (--stage-timing) and with --batch 12:
-     ATE and keyframes against the JAX package's CPU run
-     (tests/reference_cli_smoke.py), the two runs' poses against each
-     other, KLT launches frame by frame, one stats.jsonl record per frame;
-     then --dataset synthetic --mode mono --frames 14 against the same
-     reference;
+     kitti_00_stereo.yaml per frame (--stage-timing) and with --batch 12,
+     and on the central 620 columns: ATE and keyframes against the JAX
+     package's CPU runs of both layouts (tests/reference_cli_smoke.py) and,
+     at full width, against the port's --device cpu run as well; the two
+     full-width runs' poses against each other, KLT launches frame by
+     frame, one stats.jsonl record per frame; then --dataset synthetic
+     --mode mono --frames 14 against the same reference;
  11. distributed BA: a 1-rank NCCL group (`parallel/multihost.init_worker`),
      `make_distributed_ba` at __graft_entry__.dryrun_multichip's problem
      (K = 9, M = 4096, 3 iterations, stereo rows) against the single-device
-     solve, timed by CUDA events.
+     solve, timed by CUDA events, with its all-reduces per solve counted
+     (iterations + 2);
+ 12. the accuracy leg (`visual_odometry_ros_tpu_torch.eval_accuracy`):
+     `run_stereo` on the card with the kernel leg over phase 8's 49 frames
+     as float32 stereo pairs, ATE against the JAX package's CPU run of
+     scripts/eval_accuracy.run_stereo on the same frames
+     (tests/reference_accuracy_smoke.py), pose fails beside it.
 Every path is driven with the kernel launch counts set to 0 just before it
 and read just after. The last two lines are the kernel table (launches of
-the serving, mono, image-level KLT and CLI paths) and {"ok": true,
+the serving, mono (with the blackout run), image-level KLT, CLI and
+accuracy-leg paths) and {"ok": true,
 "device": ...}. This script imports no JAX.
 """
 
@@ -147,27 +160,44 @@ MONO_PAIR = 20  # frames 20 -> 21: the mono kernel checks and call sites
 MONO_CHUNK = 24
 MONO_REF_BOOT = 12
 MONO_REF_ATE_M = 0.36036
+# Blackout: the same frames and schedule with frames BLACKOUT[0] ..
+# BLACKOUT[1] - 1 a flat grey image. The JAX package on CPU
+# (tests/reference_mono_smoke.py): recoveries MONO_BLACKOUT_REF_RECOVERIES
+# ([frame, mode]), sim3 ATE of the frames from the last recovery on
+# MONO_BLACKOUT_REF_POST_ATE_M. Bounds: the same modes in order, the first
+# recovery within +-2 frames, that ATE at most 3x.
+BLACKOUT = (30, 33)
+BLACKOUT_GREY = 128.0
+MONO_BLACKOUT_REF_RECOVERIES = [[32, 2], [35, 2]]
+MONO_BLACKOUT_REF_POST_ATE_M = 0.00798273204559132
+# Card against CPU on the same state and draws (mono_unit_checks): the
+# fallback's rotation, step direction (cosine) and step length (relative)
+# to test_fallback_from_jax_state's bounds; recovery's T_wc.
+MONO_UNIT_TOL = {"fb_rot": 5e-3, "fb_cos": 0.985, "fb_len": 1e-5, "T_wc": 1e-4}
 
 # The CLI on a KITTI layout: the N_MAIN corridor frames of phases 4-5 as
 # sequence 00 (calib P0/P1 for fx 718.856, baseline 0.5371657 m), two ways:
 #  - full width with the KITTI 00 stereo configuration
 #    (config/stereo/kitti_00_stereo.yaml: 1241x376, N = 1024 in 24x12 bins,
 #    4 levels, window 21, K = 10), per frame and with --batch CLI_BATCH.
-#    Reference: the same CLI on the same layout with --device cpu (the
-#    kernels' plain versions), run on the CPU of the machine that holds the
-#    card by tests/reference_cli_plain.py: se3 ATE CLI_PLAIN_ATE_M,
-#    keyframes CLI_PLAIN_KEYFRAMES (that machine has no JAX, so the JAX
-#    comparison is made on the crop);
+#    References: the JAX package's scripts/run_vo.py on CPU on the same
+#    layout (tests/reference_cli_smoke.py): se3 ATE CLI_REF_FULL_ATE_M,
+#    keyframes CLI_REF_FULL_KEYFRAMES; and, as a second check, the port's
+#    own CLI with --device cpu (the kernels' plain versions,
+#    tests/reference_cli_plain.py, run on the CPU of the machine that holds
+#    the card): CLI_PLAIN_ATE_M, CLI_PLAIN_KEYFRAMES;
 #  - the central CLI_CROP_W columns (cx shifted, 512 tracks in 12x12 bins,
 #    the configuration's bin size; `crop_layout`). Reference: the JAX
-#    package's scripts/run_vo.py on CPU on the same crop
-#    (tests/reference_cli_smoke.py): CLI_REF_ATE_M, CLI_REF_KEYFRAMES.
-# Bounds: ATE at most 3x, keyframes within +-1. The per-frame and --batch
-# runs agree to CLI_BATCH_TOL_M on every position (the same steps on the
-# same float32 frames).
+#    package's CLI on CPU on the same crop (the same script): CLI_REF_ATE_M,
+#    CLI_REF_KEYFRAMES.
+# Bounds: ATE at most 3x each reference, keyframes within +-1. The per-frame
+# and --batch runs agree to CLI_BATCH_TOL_M on every position (the same
+# steps on the same float32 frames).
 KITTI_CONFIG = "config/stereo/kitti_00_stereo.yaml"
 KITTI_FX, KITTI_CX, KITTI_CY, KITTI_BASELINE = 718.856, 607.1928, 185.2157, 0.5371657
 CLI_CROP_W = 620
+CLI_REF_FULL_ATE_M = 0.04184284740311028
+CLI_REF_FULL_KEYFRAMES = 5
 CLI_REF_ATE_M = 0.006513906530240936
 CLI_REF_KEYFRAMES = 4
 CLI_PLAIN_ATE_M = 0.04180905436665646
@@ -179,6 +209,18 @@ CLI_BATCH_TOL_M = 1e-4
 # ate_rmse_post_init CLI_MONO_REF_ATE_M. Bound: at most 3x.
 CLI_MONO_FRAMES = 14
 CLI_MONO_REF_ATE_M = 0.0028401497356199496
+
+# The accuracy leg (visual_odometry_ros_tpu_torch/eval_accuracy.py) over the
+# N_MONO frames of phase 8 as float32 stereo pairs (the first frames of its
+# 200-frame sequence): `eval_accuracy.run_stereo` with the kernel leg on the
+# card, track_stereo_batch in chunks of 25. The JAX package's
+# scripts/eval_accuracy.run_stereo on CPU (jnp leg) on the same frames
+# (tests/reference_accuracy_smoke.py): ACC_REF_ATE_M, ACC_REF_POSE_FAILS,
+# ACC_REF_RECOVERIES. Bound: ATE at most 3x; the pose fails are printed
+# beside the reference's.
+ACC_REF_ATE_M = 0.0276957917958498
+ACC_REF_POSE_FAILS = 0
+ACC_REF_RECOVERIES = 0
 
 # Distributed BA: __graft_entry__.dryrun_multichip's problem (K = 9,
 # M = 4096, 3 iterations), one NCCL rank against the single-device solve.
@@ -303,17 +345,18 @@ def _world(kind: str):
 
 def render_pair(job):
     """Frame i of world `kind`: camera-native uint8 (left, right); for "mono"
-    the float32 left image alone, as scripts/eval_accuracy.py feeds it."""
+    the float32 pair as scripts/eval_accuracy.py feeds it (its left image is
+    `world.render(inv(T), frame=i)`, the mono frame)."""
     kind, i = job
     world, poses = _world(kind)
     if kind == "mono":
-        return world.render(np.linalg.inv(poses[i].astype(np.float64)), frame=i), None
+        return world.stereo_pair(poses[i].astype(np.float64), frame=i)
     l, r = world.stereo_pair(poses[i].astype(np.float64))
     return np.clip(l, 0, 255).astype(np.uint8), np.clip(r, 0, 255).astype(np.uint8)
 
 
 def make_frames(sizes=None):
-    """{kind: (left [n, H, W], right or None, poses)} for every run."""
+    """{kind: (left [n, H, W], right [n, H, W], poses)} for every run."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
@@ -325,8 +368,7 @@ def make_frames(sizes=None):
     out = {}
     for k, n in sizes.items():
         mine = [p for (kind, _), p in zip(jobs, pairs) if kind == k]
-        right = None if k == "mono" else np.stack([r for _, r in mine])
-        out[k] = (np.stack([l for l, _ in mine]), right, _world(k)[1][:n])
+        out[k] = (np.stack([l for l, _ in mine]), np.stack([r for _, r in mine]), _world(k)[1][:n])
     return out
 
 
@@ -791,18 +833,15 @@ def rectification_path(frames, device, card):
     assert ate <= ATE_DIST_BOUND_M, f"ATE {ate:.4f} m above bound {ATE_DIST_BOUND_M:.4f} m"
 
 
-def mono_path(frames, device, card) -> dict:
-    """Phase 8: MonoVO at the mono configuration over the first N_MONO frames
-    of the accuracy sequence: track_image until phase 2, N_MONO_TIMED frames
-    with timed=True, then track_batch in chunks of at most MONO_CHUNK.
-    Returns its kernel launch counts."""
-    import torch
-
-    from visual_odometry_ros_tpu_torch.io import ate_rmse
-    from visual_odometry_ros_tpu_torch.models.mono_vo import MonoVO
+def _mono_run(imgs, device) -> dict:
+    """MonoVO at the mono configuration over `imgs` in phase 8's schedule:
+    track_image until phase 2, N_MONO_TIMED frames with timed=True, then
+    track_batch in chunks of at most MONO_CHUNK, KLT launches counted frame
+    by frame and batch by batch from a reset. Also keeps the state before
+    the first track_batch frame (`snap`: (state_to_numpy, frame index))."""
+    from visual_odometry_ros_tpu_torch.models.mono_vo import MonoVO, state_to_numpy
     from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
 
-    imgs, _, poses = frames["mono"]
     vo = MonoVO(mono_config(), device=device)
     KK.reset_launch_counts()
     per_frame = []
@@ -826,6 +865,7 @@ def mono_path(frames, device, card) -> dict:
     boot = i - 1
     stage_ms = [step(j, timed=True)["stage_ms"] for j in range(i, i + N_MONO_TIMED)]
     i += N_MONO_TIMED
+    snap = (state_to_numpy(vo.state), i)
     batches = []
     for a, b in mono_chunks(i):
         before = dict(KK.LAUNCHES)
@@ -835,8 +875,36 @@ def mono_path(frames, device, card) -> dict:
         sync(device)
         batches.append(dict({k: KK.LAUNCHES[k] - before[k] for k in before}, frames=b - a,
                             s=time.perf_counter() - t))
+    return dict(vo=vo, boot=boot, stage_ms=stage_ms, per_frame=per_frame, batches=batches, snap=snap,
+                launches=dict(KK.LAUNCHES))
+
+
+def _check_mono_launches(run) -> None:
+    """KLT launches: none on the first frame, one klt_pyr on an init frame,
+    one klt_pyr and one klt_scale on a steady frame; a fallback, recovery
+    or keyframe step adds none."""
+    want = {"first": (0, 0), "init": (1, 0), "init_reanchor": (1, 0), "bootstrapped": (1, 0), "steady": (1, 1)}
+    for f in run["per_frame"]:
+        assert (f["klt_pyr"], f["klt_scale"]) == want[f["phase"]], f"mono KLT launches of a frame: {f}"
+    for b in run["batches"]:
+        assert b["klt_pyr"] == b["klt_scale"] == b["frames"], f"mono KLT launches of a batch: {b}"
+
+
+def mono_path(frames, device, card) -> dict:
+    """Phase 8: MonoVO at the mono configuration over the first N_MONO frames
+    of the accuracy sequence (`_mono_run`), then the same frames with a
+    blackout stretch (`mono_blackout_path`) and the fallback and recovery
+    on the card against the CPU (`mono_unit_checks`). Returns the kernel
+    launch counts of the two runs."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.io import ate_rmse
+
+    imgs, _, poses = frames["mono"]
+    run = _mono_run(imgs, device)
+    vo, boot, stage_ms, per_frame, batches = (run[k] for k in ("vo", "boot", "stage_ms", "per_frame", "batches"))
     on_card = torch.device(device).type == "cuda"
-    launches = launched("mono path") if on_card else dict(KK.LAUNCHES)
+    launches = launched("mono path") if on_card else run["launches"]
 
     log = vo.stats_log
     traj = np.stack(vo.trajectory)
@@ -861,21 +929,145 @@ def mono_path(frames, device, card) -> dict:
           f"{statistics.median(steady_ms):.2f} ms over {len(steady_ms)} frames; track_batch "
           + "; ".join(f"{b['frames']} frames at {b['frames'] / b['s']:.2f} frames/s" for b in batches)
           + f"; synchronised host clock; on {card}")
-    # KLT launches: none on the first frame, one klt_pyr on an init frame,
-    # one klt_pyr and one klt_scale on a steady frame; a fallback, recovery
-    # or keyframe step adds none.
     if on_card:
-        want = {"first": (0, 0), "init": (1, 0), "init_reanchor": (1, 0), "bootstrapped": (1, 0),
-                "steady": (1, 1)}
-        for f in per_frame:
-            assert (f["klt_pyr"], f["klt_scale"]) == want[f["phase"]], f"mono KLT launches of a frame: {f}"
-        for b in batches:
-            assert b["klt_pyr"] == b["klt_scale"] == b["frames"], f"mono KLT launches of a batch: {b}"
+        _check_mono_launches(run)
     assert abs(boot - MONO_REF_BOOT) <= 2, f"bootstrap at frame {boot}, reference {MONO_REF_BOOT}"
     assert len(kfs) >= 2, f"only {len(kfs)} mono keyframe steps"
     assert 2 * n_ba_ok >= len(kfs), f"BA accepted on {n_ba_ok} of {len(kfs)} mono keyframes"
     assert ate <= 3 * MONO_REF_ATE_M, f"mono sim3 ATE {ate:.4f} m above 3x {MONO_REF_ATE_M:.4f} m"
+
+    blackout = mono_blackout_path(frames, device, card)
+    if on_card:
+        mono_unit_checks(run["snap"], imgs, card)
+    return {k: launches[k] + blackout[k] for k in launches}
+
+
+def blackout_frames(imgs) -> np.ndarray:
+    """The mono frames with frames BLACKOUT[0] .. BLACKOUT[1] - 1 replaced by
+    a flat grey image: every track is lost there."""
+    out = np.array(imgs, copy=True)
+    out[BLACKOUT[0]:BLACKOUT[1]] = BLACKOUT_GREY
+    return out
+
+
+def recovery_summary(log, traj, poses) -> dict:
+    """Fallback frames, (frame, mode) of each recovery and the sim3 ATE of
+    the frames from the last recovery on."""
+    from visual_odometry_ros_tpu_torch.io import ate_rmse
+
+    rec = [[s["frame"], int(s["recovered"])] for s in log if s.get("recovered", 0)]
+    post = rec[-1][0] if rec else None
+    return {
+        "fallback_frames": [s["frame"] for s in log if s.get("used_fallback")],
+        "recoveries": rec,
+        "post_recovery_ate_sim3_m": (float(ate_rmse(traj[post:], poses[post:], align="sim3"))
+                                     if rec and len(traj) - post >= 3 else None),
+    }
+
+
+def mono_blackout_path(frames, device, card) -> dict:
+    """Phase 8, blackout: the mono frames with a flat grey stretch
+    (`blackout_frames`) in phase 8's schedule. The pose and the 5-point
+    fallback must fail there and recovery must fire; the recovery modes, the
+    first recovery's frame and the sim3 ATE after the last recovery are held
+    to the JAX package's CPU run of the same frames and schedule
+    (tests/reference_mono_smoke.py). Returns the kernel launch counts."""
+    import torch
+
+    imgs, _, poses = frames["mono"]
+    run = _mono_run(blackout_frames(imgs), device)
+    on_card = torch.device(device).type == "cuda"
+    launches = launched("mono blackout path") if on_card else run["launches"]
+    vo = run["vo"]
+    traj = np.stack(vo.trajectory)
+    assert traj.shape == (N_MONO, 4, 4) and np.isfinite(traj).all(), "non-finite mono blackout trajectory"
+    got = recovery_summary(vo.stats_log, traj, poses)
+    print(json.dumps({
+        "path": "MonoVO blackout", "blackout": list(BLACKOUT), "boot_frame": run["boot"], **got,
+        "recoveries_ref": MONO_BLACKOUT_REF_RECOVERIES, "post_recovery_ate_ref_m": MONO_BLACKOUT_REF_POST_ATE_M,
+        "batches": run["batches"], "launches": launches, "card": card,
+    }))
+    if on_card:
+        _check_mono_launches(run)
+    assert got["fallback_frames"] and got["recoveries"], f"the blackout fired no fallback or recovery: {got}"
+    assert got["fallback_frames"][0] < got["recoveries"][0][0], got
+    modes, ref_modes = [m for _, m in got["recoveries"]], [m for _, m in MONO_BLACKOUT_REF_RECOVERIES]
+    assert modes == ref_modes, f"recovery modes {modes}, reference {ref_modes}"
+    first, ref_first = got["recoveries"][0][0], MONO_BLACKOUT_REF_RECOVERIES[0][0]
+    assert abs(first - ref_first) <= 2, f"first recovery at frame {first}, reference {ref_first}"
+    post = got["post_recovery_ate_sim3_m"]
+    assert post is not None and post <= 3 * MONO_BLACKOUT_REF_POST_ATE_M, (
+        f"post-recovery sim3 ATE {post} m above 3x {MONO_BLACKOUT_REF_POST_ATE_M} m")
     return launches
+
+
+def mono_unit_checks(snap, imgs, card, device="cuda") -> None:
+    """Phase 8, unit level: `_fallback_5pt` and `_recover` (mode 1 on the
+    state as it is, mode 2 with every track dropped) on the card and on a
+    CPU copy of the same inputs with the same injected draws. The inputs:
+    the mono run's steady state before its first track_batch frame and that
+    frame's steady step on the card. Fallback: the same fb_ok, track mask
+    and fail_count; its motion to test_fallback_from_jax_state's bounds (a
+    one-frame 5-point solve, ill-conditioned in float32). Recovery: the same
+    mode, track mask and fail_count, T_wc to MONO_UNIT_TOL["T_wc"]."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.models.mono_vo import MonoVO, state_from_numpy, state_to_numpy
+
+    prev_np, i = snap
+    devs = {"card": device, "cpu": "cpu"}
+    vos = {k: MonoVO(mono_config(), device=d) for k, d in devs.items()}
+    img = torch.as_tensor(imgs[i], dtype=torch.float32, device=device)
+    new_np = state_to_numpy(vos["card"]._steady_step(state_from_numpy(prev_np, device), img)[0])
+    prev, new = state_from_numpy(prev_np, "cpu"), state_from_numpy(new_np, "cpu")
+    idx = vos["cpu"]._draw_essential(prev.tracks.valid & new.tracks.valid)
+    fid = int(new.frame_id)
+
+    def draw(valid):  # the CPU's recovery draws, on the caller's device
+        return vos["cpu"]._draw_recovery(fid, valid.cpu()).to(valid.device)
+
+    def host(state):
+        return state_from_numpy(state_to_numpy(state), "cpu")
+
+    fb, rec = {}, {}
+    for k, vo in vos.items():  # every call on a fresh copy of its inputs
+        d = devs[k]
+        out, fb_ok = vo._fallback_5pt(state_from_numpy(prev_np, d), state_from_numpy(new_np, d), idx=idx.to(d))
+        fb[k] = (host(out), bool(fb_ok))
+        for mode in (1, 2):
+            st = state_from_numpy(new_np, d)
+            if mode == 2:
+                st = st.replace(tracks=st.tracks.replace(valid=torch.zeros_like(st.tracks.valid)))
+            out, got = vo._recover(st, draw=draw)
+            rec[k, mode] = (host(out), int(got))
+    (fc, okc), (fp, okp) = fb["card"], fb["cpu"]
+    step_len = float(prev.step_len)
+    prev_T = prev.T_wc.double().numpy()
+    d_c, d_p = (np.linalg.inv(prev_T) @ f.T_wc.double().numpy() for f in (fc, fp))
+    cos = float(d_c[:3, 3] @ d_p[:3, 3] / max(np.linalg.norm(d_c[:3, 3]) * np.linalg.norm(d_p[:3, 3]), 1e-12))
+    row = {
+        "frame": i, "fb_ok": [okc, okp], "fb_track_mask_equal": bool(torch.equal(fc.tracks.valid, fp.tracks.valid)),
+        "fb_fail_count": [int(fc.fail_count), int(fp.fail_count)],
+        "fb_rot_max_diff": float(np.abs(d_c[:3, :3] - d_p[:3, :3]).max()), "fb_step_cos": cos,
+        "fb_step_len": [float(np.linalg.norm(d_c[:3, 3])), float(np.linalg.norm(d_p[:3, 3])), step_len],
+    }
+    for mode in (1, 2):
+        (rc, mc), (rp, mp) = rec["card", mode], rec["cpu", mode]
+        row[f"recover{mode}"] = {
+            "mode": [mc, mp], "T_wc_max_diff": float((rc.T_wc - rp.T_wc).abs().max()),
+            "track_mask_equal": bool(torch.equal(rc.tracks.valid, rp.tracks.valid)),
+            "n_tracks": [int(rc.tracks.valid.sum()), int(rp.tracks.valid.sum())],
+            "fail_count": [int(rc.fail_count), int(rp.fail_count)],
+        }
+    print(json.dumps({"mono_fallback_recover_card_vs_cpu": row, "card": card}))
+    assert okc and okp and row["fb_track_mask_equal"] and row["fb_fail_count"] == [0, 0], row
+    assert row["fb_rot_max_diff"] <= MONO_UNIT_TOL["fb_rot"] and cos > MONO_UNIT_TOL["fb_cos"], row
+    for n in row["fb_step_len"][:2]:
+        assert abs(n - step_len) <= MONO_UNIT_TOL["fb_len"] * step_len, row
+    for mode in (1, 2):
+        r = row[f"recover{mode}"]
+        assert r["mode"] == [mode, mode] and r["track_mask_equal"] and r["fail_count"] == [0, 0], (mode, row)
+        assert r["T_wc_max_diff"] <= MONO_UNIT_TOL["T_wc"], (mode, row)
 
 
 @contextlib.contextmanager
@@ -1115,12 +1307,14 @@ def cli_path(frames, card) -> dict:
     full, crop = runs["full"]["summary"], runs["crop"]["summary"]
     dpos = float(np.abs(runs["full_batch"]["traj"][:, :3, 3] - runs["full"]["traj"][:, :3, 3]).max())
     print(json.dumps({"cli_kitti": {
-        "full_ate_m": full["ate_rmse"], "full_ate_plain_m": CLI_PLAIN_ATE_M, "full_keyframes": full["keyframes"],
+        "full_ate_m": full["ate_rmse"], "full_ate_ref_m": CLI_REF_FULL_ATE_M, "full_ate_plain_m": CLI_PLAIN_ATE_M,
+        "full_keyframes": full["keyframes"], "full_keyframes_ref": CLI_REF_FULL_KEYFRAMES,
         "full_keyframes_plain": CLI_PLAIN_KEYFRAMES, "crop_ate_m": crop["ate_rmse"], "crop_ate_ref_m": CLI_REF_ATE_M,
         "crop_keyframes": crop["keyframes"], "crop_keyframes_ref": CLI_REF_KEYFRAMES,
         "batch_vs_per_frame_max_m": dpos}}))
-    for name, got, ate_ref, kf_ref in (("full width", full, CLI_PLAIN_ATE_M, CLI_PLAIN_KEYFRAMES),
-                                       ("crop", crop, CLI_REF_ATE_M, CLI_REF_KEYFRAMES)):
+    for name, got, ate_ref, kf_ref in (("full width (JAX)", full, CLI_REF_FULL_ATE_M, CLI_REF_FULL_KEYFRAMES),
+                                       ("full width (plain versions)", full, CLI_PLAIN_ATE_M, CLI_PLAIN_KEYFRAMES),
+                                       ("crop (JAX)", crop, CLI_REF_ATE_M, CLI_REF_KEYFRAMES)):
         assert got["ate_rmse"] <= 3 * ate_ref, f"CLI {name}: ATE {got['ate_rmse']:.4f} m above 3x {ate_ref}"
         assert abs(got["keyframes"] - kf_ref) <= 1, f"CLI {name}: {got['keyframes']} keyframes, reference {kf_ref}"
     assert runs["full_batch"]["summary"]["keyframes"] == full["keyframes"], "CLI batch and per-frame keyframes differ"
@@ -1166,7 +1360,9 @@ def dist_ba_path(card) -> dict:
         solve = dist_ba.make_distributed_ba(group, params)
         full = BA.BAProblem(*(torch.as_tensor(a, device=dev) for a in prob_np))
         info_d, info_s = {}, {}
+        BA.reset_collective_counts()
         res = solve(local, fx, fy, cx, cy, T_rl, info_d)
+        all_reduces = BA.COLLECTIVES["all_reduce"]
         ref = BA.ba_solve_impl(full, fx, fy, cx, cy, T_rl, params, info=info_s)
         row = {
             "problem": "dryrun_multichip", "K": int(full.T_cw.shape[0]), "M": int(full.Xw.shape[0]),
@@ -1175,6 +1371,7 @@ def dist_ba_path(card) -> dict:
             "d_err_px": abs(float(res.mean_err_px) - float(ref.mean_err_px)),
             "mean_err_px": float(res.mean_err_px), "mean_err0_px": float(res.mean_err0_px),
             "n_obs": [int(res.n_obs), int(ref.n_obs)], "iters": [info_d["iters"], info_s["iters"]],
+            "all_reduces_per_solve": all_reduces,
             "ms_per_solve": cuda_ms(lambda: solve(local, fx, fy, cx, cy, T_rl), reps=10, warmup=2),
             "single_ms_per_solve": cuda_ms(lambda: BA.ba_solve_impl(full, fx, fy, cx, cy, T_rl, params),
                                            reps=10, warmup=2),
@@ -1183,16 +1380,54 @@ def dist_ba_path(card) -> dict:
     finally:
         dist.destroy_process_group()
     print(json.dumps({"dist_ba": row}))
-    print(f"time distributed BA (1 NCCL rank, K = {row['K']}, M = {row['M']}, {BA_ITERS} iterations): "
-          f"{row['ms_per_solve']:.2f} ms per solve, single-device {row['single_ms_per_solve']:.2f} ms "
-          f"(CUDA events); on {card}")
+    print(f"time distributed BA (1 NCCL rank, K = {row['K']}, M = {row['M']}, {BA_ITERS} iterations, "
+          f"{all_reduces} all-reduces per solve): {row['ms_per_solve']:.2f} ms per solve, single-device "
+          f"{row['single_ms_per_solve']:.2f} ms (CUDA events); on {card}")
     assert row["d_T_cw"] <= BA_TOL["T_cw"] and row["d_Xw_m"] <= BA_TOL["Xw"] and row["d_err_px"] <= BA_TOL["err"], row
     # The error rises over the solve, in the JAX package too: the problem's
     # right rows repeat the left pixels (tests/test_torch_dist_ba.py holds
     # the port's solve of it to the JAX package's).
     assert row["n_obs"][0] == row["n_obs"][1] and row["iters"][0] == row["iters"][1], row
+    # One all-reduce per GN iteration, plus the error sums before and after.
+    assert all_reduces == info_d["iters"] + 2, row
     assert np.isfinite(row["mean_err_px"]), row
     return row
+
+
+def accuracy_path(frames, card) -> dict:
+    """Phase 12: the accuracy leg's stereo run (`eval_accuracy.run_stereo`,
+    kernel leg, on the card) over the N_MONO float32 stereo pairs. Returns
+    its kernel launch counts."""
+    from visual_odometry_ros_tpu_torch import eval_accuracy as EA
+    from visual_odometry_ros_tpu_torch.io import ate_rmse, rpe
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    il, ir, poses = frames["mono"]
+    KK.reset_launch_counts()
+    with frame_launch_log() as log:
+        traj, wall, slog = EA.run_stereo(il, ir, "on", "cuda")
+    launches = launched("accuracy leg")
+    calls = [{k: v for k, v in e.items() if k != "vo"} for e in log]
+    assert traj.shape == (N_MONO, 4, 4) and np.isfinite(traj).all(), "non-finite accuracy-leg trajectory"
+    ate = float(ate_rmse(traj, poses, align="none"))
+    rpe_t, rpe_r = rpe(traj, poses)
+    fails = sum(1 for s in slog if s.get("pose_ok") is False)
+    recs = sum(1 for s in slog if s.get("recovered", 0) > 0)
+    tracked = N_MONO - 1
+    print(json.dumps({
+        "path": "eval_accuracy.run_stereo (kernel leg)", "frames": N_MONO, "chunk": EA.CHUNK, "ate_m": ate,
+        "ate_ref_m": ACC_REF_ATE_M, "rpe_m_deg": [rpe_t, rpe_r], "n_pose_fail": fails,
+        "n_pose_fail_ref": ACC_REF_POSE_FAILS, "n_recoveries": recs, "n_recoveries_ref": ACC_REF_RECOVERIES,
+        "launches": launches, "launches_per_tracked_frame": {k: v / tracked for k, v in launches.items()},
+        "calls": calls, "wall_s": wall, "card": card,
+    }))
+    print(f"time accuracy leg: {N_MONO} frames in {wall:.2f} s ({N_MONO / wall:.2f} frames/s, "
+          f"track_stereo_batch in chunks of {EA.CHUNK}, float32 640x480); on {card}")
+    # Every tracked frame runs one klt_scale; two klt_pyr (track, stereo)
+    # and one more per replenish, unless a recovery replaced its tracks.
+    assert launches["klt_scale"] == tracked, f"accuracy leg: {launches} over {tracked} tracked frames"
+    assert ate <= 3 * ACC_REF_ATE_M, f"accuracy leg ATE {ate:.4f} m above 3x {ACC_REF_ATE_M} m"
+    return launches
 
 
 def main() -> int:
@@ -1350,9 +1585,12 @@ def main() -> int:
 
     # 11. distributed BA ----------------------------------------------------
     dist_ba_path(card)
-    launches = {k: serving[k] + mono[k] + api[k] + cli[k] for k in serving}
 
-    # 12. result ------------------------------------------------------------
+    # 12. the accuracy leg --------------------------------------------------
+    acc = accuracy_path(frames, card)
+    launches = {k: serving[k] + mono[k] + api[k] + cli[k] + acc[k] for k in serving}
+
+    # result ----------------------------------------------------------------
     replaces = {
         "klt_pyr": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:380",
         "klt_scale": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:621",

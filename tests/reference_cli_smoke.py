@@ -1,17 +1,19 @@
-"""The JAX package's CPU reference for the crop run of chip_smoke.py's CLI
-phase, and for its mono CLI run.
+"""The JAX package's CPU reference for chip_smoke.py's CLI phase: the
+full-width and crop stereo runs and the mono CLI run.
 
 Runs scripts/run_vo.py (the JAX CLI) on the CPU with chip_smoke's inputs
 and prints the constants its bounds are built on:
-  - stereo: the N_MAIN corridor frames (the port's renderer, the same
-    pixels) written by chip_smoke's `kitti_layouts` and cut to the central
-    CLI_CROP_W columns, run with config/stereo/kitti_00_stereo.yaml at that
-    width (cx shifted, 512 tracks in 12x12 bins) -> CLI_REF_ATE_M (se3
-    ATE), CLI_REF_KEYFRAMES. This script runs only the crop; the full
-    width's reference is tests/reference_cli_plain.py (the port's CPU run);
+  - stereo, full width: the N_MAIN corridor frames (the port's renderer,
+    the same pixels) written by chip_smoke's `kitti_layouts` at 1241x376,
+    run with config/stereo/kitti_00_stereo.yaml (N = 1024) ->
+    CLI_REF_FULL_ATE_M (se3 ATE), CLI_REF_FULL_KEYFRAMES;
+  - stereo, crop: the same frames cut to the central CLI_CROP_W columns, run
+    with that configuration at that width (cx shifted, 512 tracks in 12x12
+    bins) -> CLI_REF_ATE_M, CLI_REF_KEYFRAMES;
   - mono: --dataset synthetic --mode mono --frames CLI_MONO_FRAMES ->
     CLI_MONO_REF_ATE_M (ate_rmse_post_init).
-Run from the repository root (a few minutes, most of it jit compiles):
+Run from the repository root (about 8 minutes, the full-width run ~2.5 of
+them):
 
     JAX_PLATFORMS=cpu python tests/reference_cli_smoke.py
 """
@@ -37,16 +39,19 @@ def main() -> None:
     t0 = time.perf_counter()
     frames = CS.make_frames({"main": CS.N_MAIN})
     with tempfile.TemporaryDirectory() as tmp:
-        root, cfg = CS.kitti_layouts(tmp, frames)["crop"]
+        layouts = CS.kitti_layouts(tmp, frames)
         print(f"wrote the layouts in {time.perf_counter() - t0:.1f} s", flush=True)
-        stereo = run_vo.main(["--dataset", "kitti", "--root", root, "--config", cfg, "--mode", "stereo",
-                              "--out", os.path.join(tmp, "stereo"), "--platform", "cpu", "--quiet"])
+        stereo = {}
+        for tag, (root, cfg) in layouts.items():
+            stereo[tag] = run_vo.main(["--dataset", "kitti", "--root", root, "--config", cfg, "--mode", "stereo",
+                                       "--out", os.path.join(tmp, tag), "--platform", "cpu", "--quiet"])
         mono = run_vo.main(["--dataset", "synthetic", "--mode", "mono", "--frames", str(CS.CLI_MONO_FRAMES),
                             "--out", os.path.join(tmp, "mono"), "--platform", "cpu", "--quiet"])
     print(json.dumps({
         "reference": "scripts/run_vo.py on CPU (JAX)",
-        "CLI_REF_ATE_M": stereo["ate_rmse"], "CLI_REF_KEYFRAMES": stereo["keyframes"],
-        "stereo_frames": stereo["frames"],
+        "CLI_REF_FULL_ATE_M": stereo["full"]["ate_rmse"], "CLI_REF_FULL_KEYFRAMES": stereo["full"]["keyframes"],
+        "CLI_REF_ATE_M": stereo["crop"]["ate_rmse"], "CLI_REF_KEYFRAMES": stereo["crop"]["keyframes"],
+        "stereo_frames": [stereo["full"]["frames"], stereo["crop"]["frames"]],
         "CLI_MONO_REF_ATE_M": mono["ate_rmse_post_init"], "mono_frames": mono["frames"],
         "mono_keyframes": mono["keyframes"], "wall_s": time.perf_counter() - t0,
     }))

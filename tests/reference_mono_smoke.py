@@ -3,7 +3,9 @@
 Runs the JAX MonoVO (its jnp leg, the CPU default) on chip_smoke's mono
 frames (the port's renderer, the same pixels) with chip_smoke's mono
 configuration and schedule, and prints the numbers chip_smoke's mono bounds
-are built on (MONO_REF_BOOT, MONO_REF_ATE_M). Run from the repository root:
+are built on: MONO_REF_BOOT, MONO_REF_ATE_M, and for the same frames with
+chip_smoke's blackout stretch (`blackout_frames`) MONO_BLACKOUT_REF_RECOVERIES
+and MONO_BLACKOUT_REF_POST_ATE_M. Run from the repository root (~3 min):
 
     JAX_PLATFORMS=cpu python tests/reference_mono_smoke.py
 """
@@ -29,9 +31,10 @@ from visual_odometry_ros_tpu.models.mono_vo import MonoVO  # noqa: E402
 from visual_odometry_ros_tpu_torch.io import ate_rmse  # noqa: E402
 
 
-def jax_config() -> VOConfig:
-    """chip_smoke.mono_config(), field by field, in the JAX package's VOConfig."""
-    src, cfg = CS.mono_config(), VOConfig()
+def jax_config(src=None) -> VOConfig:
+    """A port VOConfig (by default chip_smoke.mono_config()), field by field,
+    in the JAX package's VOConfig."""
+    src, cfg = src or CS.mono_config(), VOConfig()
     for f in dataclasses.fields(src):
         v = getattr(src, f.name)
         if dataclasses.is_dataclass(v):
@@ -42,12 +45,9 @@ def jax_config() -> VOConfig:
     return cfg
 
 
-def main() -> None:
-    t0 = time.perf_counter()
-    imgs, _, poses = CS.make_frames({"mono": CS.N_MONO})["mono"]
-    print(f"rendered {len(imgs)} frames in {time.perf_counter() - t0:.1f} s", flush=True)
+def run(imgs) -> MonoVO:
+    """The JAX MonoVO over imgs in chip_smoke's mono schedule."""
     vo = MonoVO(jax_config())
-    t0 = time.perf_counter()
     i = 0
     while vo.phase != 2:
         vo.track_image(imgs[i])
@@ -57,6 +57,15 @@ def main() -> None:
         i += 1
     for a, b in CS.mono_chunks(i):
         vo.track_batch(imgs[a:b])
+    return vo
+
+
+def main() -> None:
+    t0 = time.perf_counter()
+    imgs, _, poses = CS.make_frames({"mono": CS.N_MONO})["mono"]
+    print(f"rendered {len(imgs)} frames in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    vo = run(imgs)
     log = vo.stats_log
     phases = [s["phase"] for s in log]
     kfs = [s for s in log if s["phase"] == "steady" and s["keyframe"]]
@@ -70,6 +79,16 @@ def main() -> None:
         "recovered": sum(1 for s in log if s.get("recovered", 0)),
         "chunks": CS.mono_chunks(phases.index("bootstrapped") + 1 + CS.N_MONO_TIMED),
         "wall_s": time.perf_counter() - t0,
+    }), flush=True)
+    t0 = time.perf_counter()
+    vo = run(CS.blackout_frames(imgs))
+    got = CS.recovery_summary(vo.stats_log, np.stack(vo.trajectory), poses)
+    print(json.dumps({
+        "reference": "JAX MonoVO on CPU, jnp leg, blackout", "blackout": list(CS.BLACKOUT),
+        "boot_frame": [s["phase"] for s in vo.stats_log].index("bootstrapped"),
+        "MONO_BLACKOUT_REF_RECOVERIES": got["recoveries"],
+        "MONO_BLACKOUT_REF_POST_ATE_M": got["post_recovery_ate_sim3_m"],
+        "fallback_frames": got["fallback_frames"], "wall_s": time.perf_counter() - t0,
     }))
 
 

@@ -577,3 +577,62 @@ def test_one_rank_nccl_ba_matches_single_device(dev, tmp_path):
     torch.testing.assert_close(res.Xw, ref.Xw, atol=5e-3, rtol=0)
     assert abs(float(res.mean_err_px) - float(ref.mean_err_px)) < 1e-3
     assert int(res.n_obs) == int(ref.n_obs) and info_d == info_s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2])
+def test_mono_recover_on_cuda_matches_cpu(dev, mode):
+    """MonoVO._recover on the card and on a CPU copy of the same steady
+    state with the same draws: PnP relocalization on the tracked landmarks
+    (mode 1), or with every track dropped a re-bootstrap (mode 2). The same
+    mode, track mask and fail_count, T_wc to 1e-4."""
+    world = TwoPlaneSequence(z0_a=9.0, z0_b=18.0)
+    poses = tio.forward_trajectory(12, step=0.3, yaw_rate=0.001, lateral=0.12)
+    vo = MonoVO(mono_cfg("auto"))
+    for T in poses:
+        vo.track_image(world.render(np.linalg.inv(T.astype(np.float64))))
+    assert vo.phase == 2 and vo.stats_log[-1]["phase"] == "steady"
+    state = TMVO.state_from_numpy(TMVO.state_to_numpy(vo.state), device="cpu")
+    if mode == 2:
+        state = state.replace(tracks=state.tracks.replace(valid=torch.zeros_like(state.tracks.valid)))
+    tree = TMVO.state_to_numpy(state)
+    cpu = MonoVO(mono_cfg("auto"), device="cpu")
+    fid = int(state.frame_id)
+
+    def draw(valid):  # the CPU generator's draws on the caller's device
+        return cpu._draw_recovery(fid, valid.cpu()).to(valid.device)
+
+    out = {}
+    for name, v, d in (("cuda", vo, dev), ("cpu", cpu, torch.device("cpu"))):
+        new, got = v._recover(TMVO.state_from_numpy(tree, device=d), draw=draw)
+        out[name] = (TMVO.state_from_numpy(TMVO.state_to_numpy(new), device="cpu"), int(got))
+    (c, mc), (p, mp) = out["cuda"], out["cpu"]
+    assert mc == mp == mode
+    assert torch.equal(c.tracks.valid, p.tracks.valid)
+    assert int(c.fail_count) == int(p.fail_count) == 0
+    torch.testing.assert_close(c.T_wc, p.T_wc, atol=1e-4, rtol=0)
+    if mode == 2:
+        assert int(c.ring.count) == 1 and int(c.tracks.valid.sum()) > 50
+
+
+@pytest.mark.cuda
+def test_rectify_tool_on_cuda_matches_cpu(dev, tmp_path):
+    """The port's rectification tool with its default device (the card)
+    against --device cpu on a radtan pair: the same files, pixels within one
+    grey level (uint8 rounding), the same printed K_rect and baseline."""
+    from PIL import Image
+
+    from test_torch_rectify_tool import k_rect, rectified, write_raw_pairs, write_stereo_yaml
+    from visual_odometry_ros_tpu_torch import rectify_stereo as TR
+
+    cfg = write_stereo_yaml(tmp_path / "stereo.yaml")
+    left, right = write_raw_pairs(str(tmp_path / "raw"))
+    common = ["--config", cfg, "--left", left, "--right", right, "--out"]
+    line_c = TR.main(common + [str(tmp_path / "card")])
+    line_p = TR.main(common + [str(tmp_path / "cpu"), "--device", "cpu"])
+    c, p = rectified(tmp_path / "card"), rectified(tmp_path / "cpu")
+    assert list(c) == list(p) and len(c) == 4
+    for k in c:
+        assert np.abs(c[k] - p[k]).max() <= 1, k
+    np.testing.assert_allclose(k_rect(line_c), k_rect(line_p), atol=1e-3, rtol=0)
+    assert Image.open(os.path.join(tmp_path, "card", "left", "000000.png")).mode == "L"

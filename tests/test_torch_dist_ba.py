@@ -93,6 +93,9 @@ def test_gloo_world_matches_jax_sharded_and_port_single(tmp_path, world, stereo)
     # Every rank ran the same iterations and holds the same replicated values.
     iters = {int(z["iters_run"]) for z in rows}
     assert len(iters) == 1, f"ranks left the GN loop at different iterations: {iters}"
+    # One all-reduce per GN iteration, one for the starting error and one
+    # for the final error with the observation counts.
+    assert [int(z["all_reduces"]) for z in rows] == [int(rows[0]["iters_run"]) + 2] * world
     for z in rows[1:]:
         for k in ("T_cw", "mean_err_px", "n_obs", "mean_err0_px"):
             np.testing.assert_array_equal(z[k], rows[0][k])
@@ -116,11 +119,12 @@ def test_gloo_world_matches_jax_sharded_and_port_single(tmp_path, world, stereo)
         assert et[2:].max() < 0.01
 
 
-def test_group_none_makes_no_collective_and_one_rank_group_is_identical(tmp_path, monkeypatch):
+def _one_rank_group_against_no_group(tmp_path, monkeypatch, stereo):
     """Without a group the solve is the single-device one and calls no
     collective; a one-rank gloo group (all-reduce = identity) returns the
-    same bits, so the group path only adds the reductions."""
-    problem, T_rl = _window(True)
+    same bits after iters + 2 packed all-reduces, so packing only adds the
+    reductions."""
+    problem, T_rl = _window(stereo)
     tp = TBA.BAProblem(*(torch.as_tensor(a) for a in problem))
     args = (_bafix.FX, _bafix.FY, _bafix.CX, _bafix.CY, torch.as_tensor(T_rl))
 
@@ -129,20 +133,32 @@ def test_group_none_makes_no_collective_and_one_rank_group_is_identical(tmp_path
 
     with monkeypatch.context() as m:
         m.setattr(dist, "all_reduce", refuse)
+        TBA.reset_collective_counts()
         base = TBA.ba_solve_impl(tp, *args)
+        assert TBA.COLLECTIVES["all_reduce"] == 0
     dev = MH.init_worker(f"file://{tmp_path / 'rdv1'}", 1, 0, backend="gloo", timeout=30)
     try:
         assert dev.type == "cpu"
         group = MH.global_mesh()
         local = MH.host_tree(problem, group, TDB._sharded_specs()[0], dev)
         info = {}
+        TBA.reset_collective_counts()
         res = TDB.make_distributed_ba(group)(local, *args, info=info)
+        assert TBA.COLLECTIVES["all_reduce"] == info["iters"] + 2
         assert TM.landmark_slice(problem.Xw.shape[0], group) == slice(0, problem.Xw.shape[0])
     finally:
         dist.destroy_process_group()
     for a, b in zip(res, base):
-        assert torch.equal(a, b)
+        assert a.dtype == b.dtype and torch.equal(a, b)
     assert info["iters"] >= 1
+
+
+def test_group_none_makes_no_collective_and_one_rank_group_is_identical(tmp_path, monkeypatch):
+    _one_rank_group_against_no_group(tmp_path, monkeypatch, stereo=True)
+
+
+def test_one_rank_group_is_identical_on_the_mono_window(tmp_path, monkeypatch):
+    _one_rank_group_against_no_group(tmp_path, monkeypatch, stereo=False)
 
 
 def test_problem_builders_match_bench_scaling_and_dryrun():

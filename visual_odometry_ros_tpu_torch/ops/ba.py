@@ -224,13 +224,31 @@ def ba_accept(mean_err_px, mean_err0_px, reproj_thresh: float):
     )
 
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum of x over the ranks of `group` (x itself without a group)."""
+# All-reduces issued by solves over a process group (the counterpart of
+# `klt_kernels.LAUNCHES` for the distributed path): one per call of
+# `_all_reduce`, whatever it packs.
+COLLECTIVES = {"all_reduce": 0}
+
+
+def reset_collective_counts() -> None:
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+
+
+def _all_reduce(*xs: torch.Tensor, group) -> tuple:
+    """The sums of xs over the ranks of `group`, in one all-reduce: xs are
+    packed into one flat float32 buffer, reduced and unpacked to their own
+    shapes and dtypes. Without a group, xs themselves. Integer xs are counts,
+    exact in float32 below 2**24 (M * K observations)."""
     if group is None:
-        return x
-    x = x.clone(memory_format=torch.contiguous_format)  # NCCL takes dense tensors only
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-    return x
+        return xs
+    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in xs])  # a new dense buffer, as NCCL needs
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    COLLECTIVES["all_reduce"] += 1
+    out = []
+    for x, part in zip(xs, torch.split(flat, [x.numel() for x in xs])):
+        out.append(part.reshape(x.shape).to(x.dtype))
+    return tuple(out)
 
 
 def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = BAParams(),
@@ -242,8 +260,10 @@ def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = B
     With a process group, the landmark rows of `problem` (Xw, pts, mask,
     pts_r, mask_r, lm_valid) are this rank's shard and T_cw, kf_valid are
     replicated. Assembly, elimination and back-substitution stay
-    shard-local; the reduced camera system (S, s), the divergence count and
-    the error sums are all-reduced. Every rank then solves the same system
+    shard-local. A solve of n iterations makes n + 2 all-reduces: the
+    starting error's sums; per iteration, the reduced camera system (S, s)
+    with the dy divergence count; the final error's sums with the
+    observation counts. Every rank then solves the same system
     the same way, so dx, the stop test and the loop's length agree across
     ranks; dy is shard-local and must not feed the stop test."""
     K = problem.T_cw.shape[0]
@@ -260,14 +280,16 @@ def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = B
     Xr = geo.transform_points(T_rw, problem.Xw)
     opt_mask = problem.kf_valid & (torch.arange(K, device=dev) >= params.n_fix)
 
-    def masked_mean_err(T_cr_e, Xr_e):
+    def err_sums(T_cr_e, Xr_e):
+        """The masked left-row reprojection error's sum (px) and count."""
         _, r_, _, _ = build_observation_terms(
             T_cr_e, Xr_e, problem.pts, mask, problem.pts_r, mask_r, fx, fy, cx, cy, T_rl, 1e9
         )
         rn_ = torch.sqrt(torch.sum(r_[..., :2] ** 2, dim=-1))
-        return _all_reduce(torch.sum(rn_ * mask), group) / torch.clamp(_all_reduce(torch.sum(mask), group), min=1)
+        return torch.sum(rn_ * mask), torch.sum(mask)
 
-    mean_err0 = masked_mean_err(T_cr, Xr)
+    err0, n0 = _all_reduce(*err_sums(T_cr, Xr), group=group)
+    mean_err0 = err0 / torch.clamp(n0, min=1)
     it = 0
     while it < params.iters:
         w, r, Q, Rj = build_observation_terms(
@@ -276,10 +298,20 @@ def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = B
         )
         A, a, C, b, B = assemble_normal_blocks(w, r, Q, Rj)
         S, s, Cinv, _ = schur_reduce(A, a, C, b, B, params.lam)
-        S, s = _all_reduce(S, group), _all_reduce(s, group)
+        # dy comes from the reduced system's dx, so its divergence flag is
+        # taken from what it is built of, before the reduction: a non-finite
+        # Cinv, b or B on an active landmark makes that landmark's dy
+        # non-finite. The count travels with (S, s) in one all-reduce.
+        rows_bad = lm_active & ~(torch.isfinite(Cinv).all(dim=(1, 2)) & torch.isfinite(b).all(dim=1)
+                                 & torch.isfinite(B).all(dim=(1, 2, 3)))
+        S, s, n_bad = _all_reduce(S, s, torch.sum(rows_bad), group=group)
         dx = solve_reduced(S, s, opt_mask)
         dy = torch.where(lm_active[:, None], back_substitute(Cinv, b, B, dx), 0.0)
-        dy_bad = _all_reduce((~torch.all(torch.isfinite(dy))).to(torch.int32), group) > 0
+        dy_bad = n_bad > 0
+        if group is None:
+            # One device holds all of dy: the reference's own test, which
+            # also sees a product that overflows.
+            dy_bad = dy_bad | ~torch.all(torch.isfinite(dy))
         bad = (
             ~torch.all(torch.isfinite(dx))
             | dy_bad
@@ -298,6 +330,7 @@ def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = B
     T_cw_new = torch.where(opt_mask[:, None, None], geo.se3_project(T_cr @ T_rw), problem.T_cw)
     Xw_new = torch.where(lm_active[:, None], geo.transform_points(T_wr, Xr), problem.Xw)
     killed = lm_active & (torch.linalg.norm(Xr, dim=-1) > params.kill_dist)
-    mean_err = masked_mean_err(T_cr, Xr)
-    n_obs = _all_reduce(torch.sum(mask), group) + _all_reduce(torch.sum(mask_r), group)
+    err, n_l, n_r = _all_reduce(*err_sums(T_cr, Xr), torch.sum(mask_r), group=group)
+    mean_err = err / torch.clamp(n_l, min=1)
+    n_obs = n_l + n_r
     return BAResult(T_cw_new, Xw_new, killed, mean_err, n_obs, mean_err0)

@@ -5,8 +5,10 @@ Counterpart of `visual_odometry_ros_tpu/parallel/dist_ba.py`, over a
   - landmark blocks (Xw, observation incidence, C/Cinv/B blocks, back-
     substitution) are cut along the landmark axis and never move;
   - keyframe poses and the reduced camera system (6K x 6K, a few KB) are
-    replicated; each GN iteration all-reduces (S, s) once, a small
-    latency-bound payload;
+    replicated; each GN iteration makes one all-reduce, of (S, s) and the
+    dy divergence count packed into one float32 buffer, a small
+    latency-bound payload, and a solve of n iterations makes n + 2 (the
+    error sums before and after; `ops/ba.COLLECTIVES` counts them);
   - the replicated dense solve is deterministic, so every rank steps the
     poses identically with no further synchronization.
 

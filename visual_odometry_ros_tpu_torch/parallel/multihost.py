@@ -168,7 +168,9 @@ def run_worker(args) -> dict:
         T_rl_t = torch.as_tensor(T_rl, device=dev)
         solve = dist_ba.make_distributed_ba(group, BA.BAParams(iters=args.iters))
         info = {}
+        BA.reset_collective_counts()
         res = solve(local, fx, fy, cx, cy, T_rl_t, info)
+        all_reduces = BA.COLLECTIVES["all_reduce"]
         times = []
         for _ in range(args.reps):
             dist.barrier()
@@ -182,11 +184,12 @@ def run_worker(args) -> dict:
         rows = landmark_slice(problem.Xw.shape[0], group)
         rec = {"rank": args.rank, "world": args.world, "backend": dist.get_backend(), "device": str(dev),
                "landmarks": int(problem.Xw.shape[0]), "window": int(problem.T_cw.shape[0]),
-               "iters_run": info["iters"], "mean_err_px": float(res.mean_err_px), "n_obs": int(res.n_obs),
+               "iters_run": info["iters"], "all_reduces": all_reduces, "mean_err_px": float(res.mean_err_px),
+               "n_obs": int(res.n_obs),
                "ms_per_solve": float(np.median(times)) if times else None}
         if args.out:
             np.savez(args.out.replace("{rank}", str(args.rank)), **{k: v.cpu().numpy() for k, v in res._asdict().items()},
-                     iters_run=info["iters"], lm_start=rows.start, lm_stop=rows.stop)
+                     iters_run=info["iters"], all_reduces=all_reduces, lm_start=rows.start, lm_stop=rows.stop)
         print(json.dumps(rec), flush=True)
         return rec
     finally:
