@@ -71,11 +71,18 @@ the final line):
      `run_stereo` on the card with the kernel leg over phase 8's 49 frames
      as float32 stereo pairs, ATE against the JAX package's CPU run of
      scripts/eval_accuracy.run_stereo on the same frames
-     (tests/reference_accuracy_smoke.py), pose fails beside it.
+     (tests/reference_accuracy_smoke.py), pose fails beside it;
+ 13. the measurement legs: `profile_stages` (stage table with device, host
+     and busy ms and recovery, device idle share, host syncs per frame and
+     top device operations; the trace's KLT events against the launch
+     counters) on phase 6's frames and `--mono` on phase 8's, `ab_frames`
+     over phase 8's frames (its kernel leg's pose fails against phase
+     12's), `bench_scaling`'s one-rank NCCL world (all-reduces and their
+     bytes per solve) and `h2d_overlap_probe`'s two upload routes.
 Every path is driven with the kernel launch counts set to 0 just before it
 and read just after. The last two lines are the kernel table (launches of
-the serving, mono (with the blackout run), image-level KLT, CLI and
-accuracy-leg paths) and {"ok": true,
+the serving, mono (with the blackout run), image-level KLT, CLI,
+accuracy-leg and A/B kernel-leg paths) and {"ok": true,
 "device": ...}. This script imports no JAX.
 """
 
@@ -229,6 +236,19 @@ ACC_REF_RECOVERIES = 0
 BA_ITERS = 3
 BA_TOL = {"T_cw": 2e-4, "Xw": 5e-3, "err": 1e-3}
 
+# The measurement legs (phase 13), cut to fit about a minute of the run:
+# profile_stages at a batch of PROFILE_BATCH (phase 6's 1 + 24 frames: the
+# warm-up over 1 + 12, the profile over the next 12), PROFILE_TRIALS trials
+# of PROFILE_REPS calls per stage and no FLOP count (the module's own runs
+# take those: PROFILE_TORCH.json); bench_scaling's weak world of one rank at
+# its own problem (M landmarks per rank, K keyframes, 10 iterations, 5
+# timed solves); the upload probe with H2D_TRIALS trials.
+PROFILE_BATCH = 12
+PROFILE_REPS = 1
+PROFILE_TRIALS = 1
+SCALING_M, SCALING_K, SCALING_ITERS, SCALING_REPS = 4096, 9, 10, 5
+H2D_TRIALS = 4
+
 
 # Bounds (least device time for a call's work): the fp32 operations the
 # function needs per unit of work (add, mul, min/max, floor, compare; a fused
@@ -267,22 +287,11 @@ def bound(counts: dict, n_bytes: int) -> tuple:
 
 
 def bench_config():
-    """bench.py:31-50 — KITTI-size stereo, 1024 tracks, 3 pyramid levels."""
-    from visual_odometry_ros_tpu_torch.io import VOConfig
+    """bench.py:31-50 — KITTI-size stereo, 1024 tracks, 3 pyramid levels
+    (`profile_stages.bench_config`)."""
+    from visual_odometry_ros_tpu_torch.profile_stages import bench_config as config
 
-    cfg = VOConfig()
-    cfg.cam_right = cfg.cam
-    T_lr = np.eye(4, dtype=np.float32)
-    T_lr[0, 3] = 0.5371657
-    cfg.T_lr = T_lr
-    cfg.flagDoUndistortion = False
-    cfg.extractor.n_features = N_FEAT
-    cfg.map.landmark_capacity = 4096
-    cfg.keyframe.n_max_keyframes_in_window = 9
-    cfg.keyframe.thres_translation = 4.0
-    cfg.tracker.max_level = 3
-    cfg.tracker.max_iter = 15
-    return cfg
+    return config(features=N_FEAT)
 
 
 def mono_config():
@@ -318,12 +327,7 @@ def _world(kind: str):
     """(world, poses) of one run: "main" is the corridor at 0.25 m/frame,
     "bench" bench.py's at 0.8 m/frame (bench.py:53-76: a corridor fit around
     the trajectory), "distorted" the plane world through radtan lenses."""
-    from visual_odometry_ros_tpu_torch.io import (
-        CorridorSequence,
-        DistortedStereoSequence,
-        PlaneSequence,
-        forward_trajectory,
-    )
+    from visual_odometry_ros_tpu_torch.io import DistortedStereoSequence, PlaneSequence, forward_trajectory
 
     if kind == "mono":
         from visual_odometry_ros_tpu_torch.io.synthetic import HardSequence, varied_trajectory
@@ -334,13 +338,10 @@ def _world(kind: str):
         plane = PlaneSequence(z0=14.0, sx=0.3, sy=0.15, baseline=0.5)
         return (DistortedStereoSequence(plane, np.asarray(DIST)),
                 forward_trajectory(N_DIST, step=STEP_DIST, yaw_rate=0.0015))
+    from visual_odometry_ros_tpu_torch.profile_stages import corridor_world
+
     step, n = (STEP_BENCH, N_BENCH) if kind == "bench" else (STEP_MAIN, N_MAIN)
-    poses = forward_trajectory(n, step=step, yaw_rate=0.0015)
-    world = CorridorSequence.fit(
-        poses, width=1241, height=376, fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
-        baseline=0.5371657, wall_tex_size=256, wall_tex_scale=40.0,
-    )
-    return world, poses
+    return corridor_world(n, step)
 
 
 def render_pair(job):
@@ -1394,10 +1395,10 @@ def dist_ba_path(card) -> dict:
     return row
 
 
-def accuracy_path(frames, card) -> dict:
+def accuracy_path(frames, card) -> tuple:
     """Phase 12: the accuracy leg's stereo run (`eval_accuracy.run_stereo`,
     kernel leg, on the card) over the N_MONO float32 stereo pairs. Returns
-    its kernel launch counts."""
+    its kernel launch counts and its pose fails."""
     from visual_odometry_ros_tpu_torch import eval_accuracy as EA
     from visual_odometry_ros_tpu_torch.io import ate_rmse, rpe
     from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
@@ -1427,6 +1428,83 @@ def accuracy_path(frames, card) -> dict:
     # and one more per replenish, unless a recovery replaced its tracks.
     assert launches["klt_scale"] == tracked, f"accuracy leg: {launches} over {tracked} tracked frames"
     assert ate <= 3 * ACC_REF_ATE_M, f"accuracy leg ATE {ate:.4f} m above 3x {ACC_REF_ATE_M} m"
+    return launches, fails
+
+
+def measurement_legs(frames, card, acc_fails: int) -> dict:
+    """Phase 13: the port's measurement harnesses on frames already
+    rendered. profile_stages at PROFILE_BATCH on phase 6's 1 + 24 serving
+    frames (stage table, idle share, host syncs, top device operations) and
+    --mono on phase 8's frames, each trace's KLT events held to the launch
+    counters; ab_frames over phase 8's frames as stereo pairs (its kernel
+    leg's pose fails equal phase 12's); bench_scaling's world of one NCCL
+    rank (iters + 2 all-reduces per solve, their bytes as ops/ba.py packs
+    them); h2d_overlap_probe's two upload routes. Returns the A/B kernel
+    leg's kernel launch counts."""
+    from visual_odometry_ros_tpu_torch import ab_frames as AB
+    from visual_odometry_ros_tpu_torch import bench_scaling as BS
+    from visual_odometry_ros_tpu_torch import eval_accuracy as EA
+    from visual_odometry_ros_tpu_torch import h2d_overlap_probe as H2D
+    from visual_odometry_ros_tpu_torch import profile_stages as PS
+    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+
+    out = os.path.join(ROOT, "build", "chip_smoke_legs")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    il, ir, _ = frames["bench"]
+    prof = PS.run(PS.build_vo("cuda"), il, ir, PROFILE_BATCH, STEP_BENCH, reps=PROFILE_REPS,
+                  trials=PROFILE_TRIALS, mono_vo=EA.build_mono("on", "cuda"), mono_imgs=frames["mono"][0],
+                  flops=False)
+    with open(os.path.join(out, PS.OUT_NAME), "w") as f:
+        json.dump(prof, f, indent=1)
+    for line in PS.summary_lines(prof):
+        print(line)
+    for name, part in (("stereo", prof), ("mono", prof["mono"])):
+        d = part["device"]
+        print(json.dumps({"profile": name, "idle_share": d["idle_share"], "busy_ms": d["busy_ms"],
+                          "window_ms": d["window_ms"], "device_events": d["device_events"],
+                          "klt_trace_events": d["klt_trace_events"], "klt_launches": d["klt_launches"],
+                          "host_syncs": part["host_syncs"], "card": card}))
+        assert d["klt_trace_events"] == d["klt_launches"] and d["klt_launches"]["klt_pyr"] > 0, (
+            f"{name}: the trace's KLT kernels {d['klt_trace_events']} are not the launches counted "
+            f"{d['klt_launches']}")
+    t_prof = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mil, mir, mposes = frames["mono"]
+    KK.reset_launch_counts()
+    _, ab = AB.run_ab(mil, mir, mposes, "cuda")
+    launches = launched("A/B kernel leg")
+    print(json.dumps({"ab_frames": ab, "card": card}))
+    print(f"A/B over {ab['frames']} frames: first divergent frame {ab['first_divergent_frame']}; rotation "
+          f"error q50/q90/max plain {ab['rot_err_deg_plain_q50_q90_max']}, kernel "
+          f"{ab['rot_err_deg_kernel_q50_q90_max']} deg; pose fails plain {ab['n_pose_fail_plain']}, kernel "
+          f"{ab['n_pose_fail_kernel']} (phase 12: {acc_fails})")
+    assert ab["n_pose_fail_kernel"] == acc_fails, (ab, acc_fails)
+    t_ab = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    (world,) = BS.main(["--worlds", "1", "--lm-per-rank", str(SCALING_M), "--window", str(SCALING_K),
+                        "--iters", str(SCALING_ITERS), "--reps", str(SCALING_REPS),
+                        "--json-out", os.path.join(out, BS.OUT_NAME)])
+    want_bytes = BS.payload_bytes_per_solve(world["iters_run"], SCALING_K)
+    print(f"time BA scaling, world 1 ({world['backend']}, M = {world['landmarks']}, K = {SCALING_K}): "
+          f"{world['value']:.2f} GN iters/s, {world['ms_per_solve']:.2f} ms per solve; per iteration assembly "
+          f"{world['assembly_ms_per_iter']:.3f} ms, collective and solve "
+          f"{world['collective_and_solve_ms_per_iter']:.3f} ms; {world['all_reduces_per_solve']} all-reduces, "
+          f"{world['psum_payload_bytes_per_solve']} bytes per solve (formula {want_bytes}); on {card}")
+    assert world["backend"] == "nccl" and world["all_reduces_per_solve"] == world["iters_run"] + 2, world
+    assert world["psum_payload_bytes_per_solve"] == want_bytes, world
+    t_ba = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    h2d = H2D.probe(trials=H2D_TRIALS)
+    print(json.dumps({"h2d_overlap": h2d}))
+    print("time upload of " + f"{h2d['payload_bytes']} bytes: " + "; ".join(
+        f"{k} {r['upload_GBps']:.2f} GB/s ({r['upload_ms']:.2f} ms), overlap ratio {r['overlap_ratio']:.3f} "
+        f"beside {r['compute_ms']:.2f} ms of compute" for k, r in h2d["routes"].items()) + f"; on {card}")
+    print(f"phase 13 wall: profile {t_prof:.1f} s, A/B {t_ab:.1f} s, BA scaling {t_ba:.1f} s, "
+          f"upload probe {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1587,8 +1665,11 @@ def main() -> int:
     dist_ba_path(card)
 
     # 12. the accuracy leg --------------------------------------------------
-    acc = accuracy_path(frames, card)
-    launches = {k: serving[k] + mono[k] + api[k] + cli[k] + acc[k] for k in serving}
+    acc, acc_fails = accuracy_path(frames, card)
+
+    # 13. the measurement legs ----------------------------------------------
+    ab = measurement_legs(frames, card, acc_fails)
+    launches = {k: serving[k] + mono[k] + api[k] + cli[k] + acc[k] + ab[k] for k in serving}
 
     # result ----------------------------------------------------------------
     replaces = {

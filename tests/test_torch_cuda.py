@@ -636,3 +636,44 @@ def test_rectify_tool_on_cuda_matches_cpu(dev, tmp_path):
         assert np.abs(c[k] - p[k]).max() <= 1, k
     np.testing.assert_allclose(k_rect(line_c), k_rect(line_p), atol=1e-3, rtol=0)
     assert Image.open(os.path.join(tmp_path, "card", "left", "000000.png")).mode == "L"
+
+
+@pytest.mark.cuda
+def test_profiler_klt_events_equal_the_launch_counters(dev):
+    """profile_stages' trace of a pipeline batch on the card: the KLT kernels'
+    trace events equal ops/klt_kernels.LAUNCHES over the same window, the
+    trace holds device time, and the sync count restores the debug mode."""
+    from visual_odometry_ros_tpu_torch import profile_stages as PS
+
+    world = tio.PlaneSequence(z0=14.0, sx=0.3, sy=0.15, baseline=0.5)
+    poses = tio.forward_trajectory(7, step=0.22, yaw_rate=0.0015)
+    pairs = [world.stereo_pair(T.astype(np.float64)) for T in poses]
+    il, ir = np.stack([a for a, _ in pairs]), np.stack([b for _, b in pairs])
+    vo = StereoVO(plane_cfg(), device=dev)
+    vo.track_stereo_batch(il[:4], ir[:4])
+    win = PS.trace_window(lambda: vo.track_stereo_batch(il[4:], ir[4:]), dev)
+    assert win["klt_launches"]["klt_pyr"] >= 6 and win["klt_launches"]["klt_scale"] == 3
+    assert win["klt_trace_events"] == win["klt_launches"]
+    assert 0 < win["busy_ms"] <= win["window_ms"] and 0 <= win["idle_share"] < 1 and win["top_ops"]
+    state = vo.state
+    im = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (il[6], ir[6])]
+    before = torch.cuda.get_sync_debug_mode()
+    assert PS.count_syncs(lambda: vo._steady_step(state, *im), dev) > 0
+    assert torch.cuda.get_sync_debug_mode() == before
+
+
+@pytest.mark.cuda
+def test_pinned_upload_equals_the_pageable_one(dev):
+    from visual_odometry_ros_tpu_torch import h2d_overlap_probe as H2D
+
+    rng = np.random.default_rng(0)
+    host = tuple(rng.integers(0, 255, (3, 376, 1241), np.uint8) for _ in range(2))
+    routes = H2D._Routes(host, dev)
+    page, page_f = routes.read(routes.pageable_start())
+    pin, pin_f = routes.read(routes.pinned_start())
+    torch.cuda.synchronize(dev)
+    for a, b, h in zip(page, pin, host):
+        assert a.device.type == b.device.type == "cuda" and a.dtype == b.dtype == torch.uint8
+        assert torch.equal(a, b) and np.array_equal(b.cpu().numpy(), h)
+    for a, b in zip(page_f, pin_f):
+        assert a.dtype == torch.float32 and torch.equal(a, b)

@@ -99,6 +99,10 @@ import visual_odometry_ros_tpu_torch.parallel.multihost
 import visual_odometry_ros_tpu_torch.run_vo
 import visual_odometry_ros_tpu_torch.eval_accuracy
 import visual_odometry_ros_tpu_torch.rectify_stereo
+import visual_odometry_ros_tpu_torch.profile_stages
+import visual_odometry_ros_tpu_torch.ab_frames
+import visual_odometry_ros_tpu_torch.bench_scaling
+import visual_odometry_ros_tpu_torch.h2d_overlap_probe
 from visual_odometry_ros_tpu_torch.io import VOConfig, forward_trajectory, PlaneSequence
 assert VOConfig().tracker.max_iter > 0 and forward_trajectory(3).shape == (3, 4, 4)
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "visual_odometry_ros_tpu"))

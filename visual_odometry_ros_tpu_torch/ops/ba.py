@@ -226,8 +226,8 @@ def ba_accept(mean_err_px, mean_err0_px, reproj_thresh: float):
 
 # All-reduces issued by solves over a process group (the counterpart of
 # `klt_kernels.LAUNCHES` for the distributed path): one per call of
-# `_all_reduce`, whatever it packs.
-COLLECTIVES = {"all_reduce": 0}
+# `_all_reduce`, whatever it packs, and the bytes of the buffers reduced.
+COLLECTIVES = {"all_reduce": 0, "bytes": 0}
 
 
 def reset_collective_counts() -> None:
@@ -245,6 +245,7 @@ def _all_reduce(*xs: torch.Tensor, group) -> tuple:
     flat = torch.cat([x.reshape(-1).to(torch.float32) for x in xs])  # a new dense buffer, as NCCL needs
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     COLLECTIVES["all_reduce"] += 1
+    COLLECTIVES["bytes"] += flat.numel() * flat.element_size()
     out = []
     for x, part in zip(xs, torch.split(flat, [x.numel() for x in xs])):
         out.append(part.reshape(x.shape).to(x.dtype))

@@ -155,6 +155,30 @@ def load_problem_npz(path: str):
 # ---------------------------------------------------------------------------
 
 
+def assembly_ms(problem, fx, fy, cx, cy, T_rl, reps: int) -> float:
+    """Median ms of the shard-local half of one GN iteration on this rank's
+    problem (scripts/bench_scaling.py:253-269): observation terms, normal
+    blocks and the Schur elimination, no collective; host clock ending in a
+    synchronise."""
+    dev = problem.T_cw.device
+
+    def once():
+        w, r, Q, Rj = BA.build_observation_terms(problem.T_cw, problem.Xw, problem.pts, problem.mask,
+                                                 problem.pts_r, problem.mask_r, fx, fy, cx, cy, T_rl, 1.0)
+        return BA.schur_reduce(*BA.assemble_normal_blocks(w, r, Q, Rj), 1e-4)
+
+    times = []
+    for _ in range(reps + 1):  # the first call warms up
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        once()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times[1:]))
+
+
 def run_worker(args) -> dict:
     dev = init_worker(args.init, args.world, args.rank, args.backend, args.timeout)
     try:
@@ -170,7 +194,7 @@ def run_worker(args) -> dict:
         info = {}
         BA.reset_collective_counts()
         res = solve(local, fx, fy, cx, cy, T_rl_t, info)
-        all_reduces = BA.COLLECTIVES["all_reduce"]
+        all_reduces, reduced_bytes = BA.COLLECTIVES["all_reduce"], BA.COLLECTIVES["bytes"]
         times = []
         for _ in range(args.reps):
             dist.barrier()
@@ -184,9 +208,10 @@ def run_worker(args) -> dict:
         rows = landmark_slice(problem.Xw.shape[0], group)
         rec = {"rank": args.rank, "world": args.world, "backend": dist.get_backend(), "device": str(dev),
                "landmarks": int(problem.Xw.shape[0]), "window": int(problem.T_cw.shape[0]),
-               "iters_run": info["iters"], "all_reduces": all_reduces, "mean_err_px": float(res.mean_err_px),
-               "n_obs": int(res.n_obs),
-               "ms_per_solve": float(np.median(times)) if times else None}
+               "iters_run": info["iters"], "all_reduces": all_reduces, "all_reduce_bytes": reduced_bytes,
+               "mean_err_px": float(res.mean_err_px), "n_obs": int(res.n_obs),
+               "ms_per_solve": float(np.median(times)) if times else None,
+               "assembly_ms": assembly_ms(local, fx, fy, cx, cy, T_rl_t, args.reps) if args.reps else None}
         if args.out:
             np.savez(args.out.replace("{rank}", str(args.rank)), **{k: v.cpu().numpy() for k, v in res._asdict().items()},
                      iters_run=info["iters"], all_reduces=all_reduces, lm_start=rows.start, lm_stop=rows.stop)
@@ -209,7 +234,8 @@ def main(argv=None) -> dict:
     p.add_argument("--window", type=int, default=9, help="K keyframes")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--iters", type=int, default=10)
-    p.add_argument("--reps", type=int, default=0, help="timed solves after the first")
+    p.add_argument("--reps", type=int, default=0,
+                   help="timed solves after the first, and timed assembly-only passes")
     p.add_argument("--out", default=None, help="npz of this rank's result; {rank} is replaced")
     return run_worker(p.parse_args(argv))
 
