@@ -9,7 +9,8 @@ Phases (each prints its lines; any failure raises and exits non-zero before
 the final line):
   1. environment: torch / CUDA versions, the card's name and power limit;
      every world below is rendered in one process pool;
-  2. build: compiles csrc/klt.cu with nvcc for sm_90a into build/kernels/;
+  2. build: compiles csrc/*.cu (klt.cu, pose_gn.cu) in one nvcc call for
+     sm_90a into one library under build/kernels/;
   3. kernels: `klt_pyr` one level at a time (2-D and epi1d, all three
      pyramid level sizes), as the fused forward climb (N = 1024), as the
      bidirectional epi1d climb (N = 512) and as mono's 2-D bidirectional
@@ -20,17 +21,24 @@ the final line):
      the six KLT call sites (stereo track climb, scale, stereo, replenish;
      mono track, mono scale), one launch per call asserted, device time per
      launch (C launcher alone, back to back), host time per call, the plain
-     version's time and the bound from this run's work counts;
+     version's time and the bound from this run's work counts. Once phases
+     4, 6 and 8 have recorded the pose stage's inputs (a steady stereo
+     frame, a steady mono frame, two PnP polishes of a recovery: the first
+     and the one over the most valid points), `pose_gn` on each against the
+     plain versions (`*_ref`), two launches bit-identical, and timed the
+     same way, its bound from the plain versions' work counts;
   4. per-frame path: `StereoVO(cfg, device="cuda")` at the bench.py
      configuration over 1 + 18 frames of the bench corridor at 0.25 m/frame
      through `track_stereo_images`; times steady and keyframe steps and
-     counts KLT launches frame by frame;
+     counts kernel launches frame by frame (one robust pose solve, so one
+     pose_gn, per frame);
   5. per-stage times: 6 more frames of the same run with `timed=True`;
      checks kernel launches, BA keyframes and the 25-frame trajectory error;
   6. serving path: bench.py's workload -- the corridor at bench.py's
      0.8 m/frame, 1 + 24 uint8 frames through `track_stereo_batch` in two
      calls (1 + 12, then 12); tracking-loss recovery must fire; checks
-     launches, trajectory error and post-recovery RPE against the JAX
+     launches (per steady step one robust pose solve and the PnP polishes
+     of its recovery), trajectory error and post-recovery RPE against the JAX
      package's CPU run, and times the batch calls;
   7. rectification: the same tracker and map configuration with
      `flagDoUndistortion=True` on the 640x480 plane world rendered through
@@ -41,7 +49,8 @@ the final line):
      `track_image` until the bootstrap, 6 frames with `timed=True`, then
      `track_batch`; checks the bootstrap frame, keyframe steps and BA
      acceptance, sim3 ATE against the JAX package's CPU run
-     (tests/reference_mono_smoke.py) and KLT launches frame by frame; then
+     (tests/reference_mono_smoke.py) and kernel launches frame by frame
+     (one robust pose solve per steady frame); then
      the same frames with a flat grey stretch (frames 30-32): the 5-point
      fallback and recovery must fire, recovery modes, first recovery frame
      and post-recovery sim3 ATE against the JAX run of those frames; then
@@ -80,7 +89,9 @@ the final line):
      12's), `bench_scaling`'s one-rank NCCL world (all-reduces and their
      bytes per solve) and `h2d_overlap_probe`'s two upload routes.
 Every path is driven with the kernel launch counts set to 0 just before it
-and read just after. The last two lines are the kernel table (launches of
+and read just after; every kernel must have run on every path, and pose_gn
+once for each call of the four public pose functions (counted by a wrapper
+around them over phases 4-13). The last two lines are the kernel table (launches of
 the serving, mono (with the blackout run), image-level KLT, CLI,
 accuracy-leg and A/B kernel-leg paths) and {"ok": true,
 "device": ...}. This script imports no JAX.
@@ -114,6 +125,20 @@ TOL_MEDIAN_PX = 1e-3  # median |dp| over features live in both
 TOL_FAR_PX = 0.05  # a jointly-live feature farther apart than this is "divergent"
 TOL_FAR_SHARE = 0.005  # at most 0.5% divergent features
 TOL_FLAG_AGREE = 0.995  # live/ok flags agree on at least 99.5% of features
+
+# pose_gn against its plain version on the pose inputs that phases 4, 6 and
+# 8 recorded (a steady stereo frame, a steady mono frame, a PnP polish of a
+# recovery). Only the order of the point sums differs, which can move the
+# stop test by an iteration: T10 to POSE_TOL_T (an extra iteration at the
+# step_tol = 1e-4 stop moves it by less), the same ok, mean_err to
+# POSE_TOL_ERR relative. A pose within POSE_TOL_T moves a pixel by up to
+# about fx * POSE_TOL_T (0.07 px at KITTI's fx): err to POSE_TOL_ERR
+# relative plus that, and the same inliers except for points within that of
+# reproj_thresh.
+POSE_TOL_T = 1e-4
+POSE_TOL_ERR = 1e-3
+POSE_LOG_MAX = 64  # pose calls a phase records
+MONO_POSE_CALL = 10  # the recorded mono call held (a steady frame of phase 8's first run)
 
 # Per-frame path: the bench corridor at 0.25 m/frame, 1 + 24 frames, of which
 # the last N_TIMED run with timed=True. ATE bound: the JAX package's CPU run
@@ -274,6 +299,30 @@ OPS = {
     "scale_step_px": 16,  # sample 9, then as step_px
     "scale_err_px": 15,  # sample 9, then as err_px
     "scale_line": 9,  # point (FMA) 2, clamp 2, floor 1, cell clamp 1, fraction 1, inside test 2
+    # pose_gn, per weighted point (valid in its pass; the others have
+    # weight 0 and add nothing to H and g) and GN iteration: mono
+    # residual_fn 50 (transform 18, inverse depth 4, pixel residual 8,
+    # projection Jacobian 7, the chain P [I | -[Xc]x] at its 10 nonzero
+    # products (the left block is P; the skew's signs fold into them),
+    # front mask 3: a compare, a select on the squared norm and on the
+    # weight), then 133 (|r| 5, Huber weight 5, cost 3, J*w 12, H's 21
+    # distinct entries 84, g 24); stereo residual_fn 129 (two transforms
+    # 36, two projections 24, left Jacobian 17, right Jacobian 43: P_r 7,
+    # P_r R_rl 18, its chain 18; masks 9: two compares and three ands, a
+    # select on each view's squared norm and weight), then 257 (|r| 9,
+    # weight 5, cost 3, J*w 24, H 168, g 48). A pass's final evaluation,
+    # over all N points (per-point outputs): residuals without Jacobians,
+    # error, inlier test and sums. The robust gate, over all N: four
+    # reprojection errors (36 each) and their counts. The 6x6 step (damping,
+    # Cholesky, solves, se3_exp: ~0.5 k per iteration) is left out: under
+    # 1% at the main path's counts. The units come from the plain
+    # versions' `counts`. Latency, not these operations, is what limits the
+    # solve: up to 2 x 100 dependent iterations (PERF.md).
+    "pose_point_iter_mono": 183,
+    "pose_point_iter_stereo": 386,
+    "pose_point_eval_mono": 43,
+    "pose_point_eval_stereo": 83,
+    "pose_point_gate": 154,
 }
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -443,28 +492,34 @@ def recorded_launches(fn):
     argv)], and the launch helpers' inputs and outputs: the tensors behind
     argv's pointers, which the caller holds while it replays argv."""
     from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+    from visual_odometry_ros_tpu_torch.ops import pose_gn as PG
 
     calls, tensors = [], []
-    orig = {k: getattr(KK, k) for k in ("_launch", "_pyr_launch", "_scale_launch")}
+    helpers = {KK: ("_pyr_launch", "_scale_launch"), PG: ("_pg_launch",)}
+    orig = {(m, k): getattr(m, k) for m, names in helpers.items() for k in ("_launch", *names)}
 
-    def rec(name, c_fn, argv):
-        calls.append((name, c_fn, argv))
-        return orig["_launch"](name, c_fn, argv)
+    def rec(launch):
+        def run(name, c_fn, argv):
+            calls.append((name, c_fn, argv))
+            return launch(name, c_fn, argv)
+        return run
 
     def holding(helper):
         def run(*args):
-            out = orig[helper](*args)
+            out = helper(*args)
             tensors.append((args, out))
             return out
         return run
 
-    KK._launch = rec
-    KK._pyr_launch, KK._scale_launch = holding("_pyr_launch"), holding("_scale_launch")
+    for m, names in helpers.items():
+        m._launch = rec(orig[m, "_launch"])
+        for k in names:
+            setattr(m, k, holding(orig[m, k]))
     try:
         fn()
     finally:
-        for k, v in orig.items():
-            setattr(KK, k, v)
+        for (m, k), v in orig.items():
+            setattr(m, k, v)
     return calls, tensors
 
 
@@ -642,13 +697,165 @@ def compare(name, p_k, ok_k, p_r, ok_r):
 
 
 def launched(phase: str) -> dict:
-    """The kernel launch counts since the last reset; both kernels must have run."""
-    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+    """The kernel launch counts since the last `reset_counts`; every kernel
+    must have run, and pose_gn once for each call of a public pose function."""
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
-    counts = dict(KK.LAUNCHES)
-    for name in ("klt_pyr", "klt_scale"):
+    counts = dict(KN.LAUNCHES)
+    for name in counts:
         assert counts[name] > 0, f"{phase}: the path never launched {name}"
+    assert counts["pose_gn"] == POSE_CALLS["pose_calls"], (
+        f"{phase}: {counts['pose_gn']} pose_gn launches for {POSE_CALLS['pose_calls']} pose solves")
     return counts
+
+
+# Calls of the four public pose functions on CUDA tensors while `pose_calls`
+# runs: all of them, and the robust ones (the pose stage of a tracked
+# frame; the others are the PnP polishes of a recovery).
+POSE_FNS = ("pose_only_gn_stereo_robust", "pose_only_gn_mono_robust", "pose_only_gn_mono", "pose_only_gn_stereo")
+POSE_CALLS = {"pose_calls": 0, "pose_robust": 0}
+
+
+def reset_counts() -> None:
+    """Sets the kernel launch counts and POSE_CALLS to 0."""
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
+
+    KN.reset_launch_counts()
+    for k in POSE_CALLS:
+        POSE_CALLS[k] = 0
+
+
+def counts() -> dict:
+    """The kernel launch counts and POSE_CALLS, for per-frame differences."""
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
+
+    return dict(KN.LAUNCHES, **POSE_CALLS)
+
+
+def diff(before: dict) -> dict:
+    now = counts()
+    return {k: now[k] - before[k] for k in before}
+
+
+@contextlib.contextmanager
+def pose_calls():
+    """While the block runs, POSE_CALLS counts the calls of the four public
+    pose functions on CUDA tensors. Yields `record`: `with record() as log`
+    keeps the block's calls in log, {name: [(args, kwargs)]}, the first
+    POSE_LOG_MAX of each, tensors cloned."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.ops import pose_gn as PG
+
+    orig = {n: getattr(PG, n) for n in POSE_FNS}
+    sink = [None]
+
+    def counted(name):
+        def run(*a, **kw):
+            if a[0].is_cuda:
+                POSE_CALLS["pose_calls"] += 1
+                POSE_CALLS["pose_robust"] += name.endswith("_robust")
+                log = sink[0]
+                if log is not None and len(log[name]) < POSE_LOG_MAX:
+                    log[name].append((tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a), dict(kw)))
+            return orig[name](*a, **kw)
+        return run
+
+    @contextlib.contextmanager
+    def record():
+        sink[0] = {n: [] for n in POSE_FNS}
+        try:
+            yield sink[0]
+        finally:
+            sink[0] = None
+
+    for n in POSE_FNS:
+        setattr(PG, n, counted(n))
+    try:
+        yield record
+    finally:
+        for n, f in orig.items():
+            setattr(PG, n, f)
+
+
+def pose_bytes(stereo: bool, robust: bool, n: int) -> int:
+    """Bytes a solve must move: X0, pts, valid (and the right view's), T_init
+    (and T_rl) read once; T, inliers, mean_err, ok, n_iter (and err) written once."""
+    read = n * (12 + 8 + 1) + 64 + (n * (8 + 1) + 64 if stereo else 0)
+    return read + 64 + n + 4 + 1 + 4 + (4 * n if robust else 0)
+
+
+def pose_gn_checks(cases: dict, card: str) -> dict:
+    """Phase 3, pose_gn, on the recorded inputs `cases` ({name: (function
+    name, args, kwargs)}): one launch per call, two launches bit-identical,
+    kernel against `*_ref` to the POSE_TOL_* tolerances, n_iter of both; then
+    device ms per launch (the C launcher replayed 100 times back to back
+    between CUDA events), wrapper host us, the plain version's ms and the
+    bound from the plain version's work counts on these inputs (the weighted
+    points of each pass times its iterations). Returns {name: row}."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
+    from visual_odometry_ros_tpu_torch.ops import pose_gn as PG
+
+    rows = {}
+    for name, (fn_name, args, kwargs) in cases.items():
+        robust = fn_name.endswith("_robust")
+        stereo = "stereo" in fn_name
+        fn, ref = getattr(PG, fn_name), getattr(PG, fn_name + "_ref")
+
+        def call(f):
+            out = f(*args, **kwargs)
+            return out if robust else (out, None)
+
+        KN.reset_launch_counts()
+        (rk, ek), (rk2, ek2) = call(fn), call(fn)
+        assert KN.LAUNCHES["pose_gn"] == 2, f"{name}: {KN.LAUNCHES['pose_gn']} launches for two calls"
+        rr, er = call(ref)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip((*rk, *([ek] if robust else [])),
+                                                      (*rk2, *([ek2] if robust else []))))
+        X0, pts_l = args[0], args[1]
+        fx, fy, cx, cy = args[5:9] if stereo else args[3:7]
+        i_params = 11 if stereo else 8  # after T_10_init
+        params = args[i_params] if len(args) > i_params else kwargs.get("params", PG.PoseGNParams())
+        thr = params.reproj_thresh
+        px = max(fx, fy) * POSE_TOL_T  # the pixel shift of a pose within POSE_TOL_T
+        e_ref = PG._reproj_err_px(rr.T10, X0, pts_l, fx, fy, cx, cy)
+        flip = rk.inliers != rr.inliers
+        edge = float((e_ref[flip] - thr).abs().max()) if bool(flip.any()) else 0.0
+        d_T = float((rk.T10 - rr.T10).abs().max())
+        d_mean = abs(float(rk.mean_err) - float(rr.mean_err))
+        d_err = float(((ek - er).abs() - POSE_TOL_ERR * er.abs()).nan_to_num(0.0).max()) if robust else None
+        same_nan = not robust or torch.equal(ek.isnan(), er.isnan())
+        n = X0.shape[0]
+        n_iter = [int(rk.n_iter), int(rr.n_iter)]
+        row = {"case": name, "function": fn_name, "n": n, "n_valid": int(args[3 if stereo else 2].sum()),
+               "ok": [bool(rk.ok), bool(rr.ok)], "n_iter_kernel_plain": n_iter, "max_abs_err_T10": d_T,
+               "inliers_flipped": int(flip.sum()), "flipped_max_px_from_thresh": edge,
+               "mean_err": [float(rk.mean_err), float(rr.mean_err)], "err_excess_px": d_err,
+               "px_tol": px, "bit_identical_relaunch": same}
+        print(json.dumps(row))
+        assert same, f"{name}: two launches on the same inputs differ"
+        assert row["ok"][0] == row["ok"][1] and d_T <= POSE_TOL_T, row
+        assert edge <= px and same_nan, row
+        assert d_mean <= POSE_TOL_ERR * abs(float(rr.mean_err)), row
+        assert d_err is None or d_err <= px, row
+
+        work = {}
+        ref(*args, **kwargs, counts=work)
+        b_ms, b_by = bound(work, pose_bytes(stereo, robust, n))
+        calls, tensors = recorded_launches(lambda: call(fn))
+        assert [c[0] for c in calls] == ["pose_gn"], f"{name}: launches per call {[c[0] for c in calls]}"
+        row.update(ms=device_ms([(c[1], c[2]) for c in calls]), bound_ms=b_ms, bound_by=b_by,
+                   plain_ms=cuda_ms(lambda: call(ref), reps=5, warmup=1), host_us=host_us(lambda: call(fn)))
+        del tensors  # held until the replays are done
+        row["bound_share"] = b_ms / row["ms"]
+        rows[name] = row
+        print(f"time pose_gn {name} ({fn_name}, N={n}, {n_iter[0]} iterations): device {row['ms']:.4f} ms "
+              f"per launch (100 back-to-back launches), bound {b_ms:.6f} ms by {b_by}, plain "
+              f"{row['plain_ms']:.4f} ms, wrapper host {row['host_us']:.1f} us per call on {card}")
+    return rows
 
 
 def sync(device):
@@ -663,7 +870,7 @@ def per_frame_path(frames, device, card):
     the last N_TIMED frames with timed=True."""
     from visual_odometry_ros_tpu_torch.io import ate_rmse
     from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO
-    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
     pairs = list(zip(frames["main"][0], frames["main"][1]))
     poses_main = frames["main"][2]
@@ -689,38 +896,39 @@ def per_frame_path(frames, device, card):
 
     vo._replenish = counted_rep
     n_plain = N_MAIN - N_TIMED
-    KK.reset_launch_counts()
+    reset_counts()
     frame_ms, frame_launches = [], []
     for il, ir in pairs[:n_plain]:
-        before = dict(KK.LAUNCHES)
+        before = counts()
         replenishes[0] = 0
         sync(device)
         t = time.perf_counter()
         vo.track_stereo_images(il, ir)
         sync(device)
         frame_ms.append((time.perf_counter() - t) * 1e3)
-        frame_launches.append(dict({k: KK.LAUNCHES[k] - before[k] for k in before},
-                                   replenish=replenishes[0]))
+        frame_launches.append(dict(diff(before), replenish=replenishes[0]))
     launches = launched("per-frame path")
     tracked = [dict(n, n_new=s["n_new"], recovered=s.get("recovered", 0))
                for s, n in zip(vo.stats_log[1:], frame_launches[1:])]
     kinds = {}
     for n in tracked:
         kind = "replenish" if n["replenish"] else "steady"
-        kinds.setdefault(kind, set()).add(json.dumps({k: n[k] for k in KK.LAUNCHES}, sort_keys=True))
+        kinds.setdefault(kind, set()).add(json.dumps({k: n[k] for k in KN.LAUNCHES}, sort_keys=True))
     print(json.dumps({"klt_launches_per_frame": {k: sorted(v) for k, v in kinds.items()},
                       "frames": tracked}))
     # A tracked frame: one klt_pyr launch each for the track climb and the
-    # stereo pass, one more for each replenish it ran; one klt_scale.
+    # stereo pass, one more for each replenish it ran; one klt_scale; one
+    # pose solve, the robust one, in one pose_gn launch.
     for n in tracked:
         assert not n["recovered"], f"recovery fired at {STEP_MAIN} m/frame: {n}"
         assert n["klt_scale"] == 1 and n["klt_pyr"] == 2 + n["replenish"], f"KLT launches of a frame: {n}"
+        assert n["pose_gn"] == n["pose_calls"] == n["pose_robust"] == 1, f"pose_gn launches of a frame: {n}"
     steady = [ms for ms, s in zip(frame_ms[3:], vo.stats_log[3:]) if not s["keyframe"]]
     print(f"time steady frame: median {statistics.median(steady):.2f} ms over {len(steady)} frames; "
           f"keyframe step: median {statistics.median(kf_ms[1:] or kf_ms):.2f} ms over "
           f"{len(kf_ms)} keyframes; first frame {frame_ms[0]:.1f} ms; on {card}")
 
-    KK.reset_launch_counts()
+    reset_counts()
     stage_ms, timed_frame_ms = [], []
     for il, ir in pairs[n_plain:]:
         sync(device)
@@ -759,11 +967,21 @@ def serving_path(frames, device, card) -> dict:
     Returns its kernel launch counts."""
     from visual_odometry_ros_tpu_torch.io import ate_rmse, rpe
     from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO
-    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
     il, ir, poses = frames["bench"]
     vo = StereoVO(bench_config(), device=device)
-    KK.reset_launch_counts()
+    steps = []
+    orig_step = vo._steady_step
+
+    def logged_step(*a, **kw):
+        before = counts()
+        out = orig_step(*a, **kw)
+        steps.append(diff(before))
+        return out
+
+    vo._steady_step = logged_step
+    reset_counts()
     batch_s = []
     for a, b in ((0, 13), (13, N_BENCH)):
         sync(device)
@@ -772,6 +990,12 @@ def serving_path(frames, device, card) -> dict:
         sync(device)
         batch_s.append((b - a, time.perf_counter() - t))
     launches = launched("serving path")
+    # A steady step: one robust pose solve, and the PnP polishes of a
+    # recovery; one pose_gn launch for each solve.
+    pose_steps = [[st["pose_gn"], st["pose_calls"], st["pose_robust"]] for st in steps]
+    assert len(steps) == N_BENCH - 1 and all(a == b and c == 1 for a, b, c in pose_steps), (
+        f"per steady step [pose_gn launches, pose solves, robust solves]: {pose_steps}")
+    assert any(b > c for _, b, c in pose_steps), f"no recovery ran a PnP polish: {pose_steps}"
     traj = np.stack(vo.trajectory)
     assert traj.shape == (N_BENCH, 4, 4) and np.isfinite(traj).all(), "non-finite trajectory"
     modes = [s.get("recovered", 0) for s in vo.stats_log]
@@ -786,7 +1010,8 @@ def serving_path(frames, device, card) -> dict:
         "batches": [n for n, _ in batch_s], "recovered": modes,
         "pose_ok": [bool(s.get("pose_ok", True)) for s in vo.stats_log],
         "keyframes": [s["frame"] for s in vo.stats_log if s.get("keyframe")],
-        "launches": launches, "ate_m": ate, "ate_bound_m": ATE_BENCH_BOUND_M,
+        "launches": launches, "pose_gn_solves_robust_per_step": pose_steps, "ate_m": ate,
+        "ate_bound_m": ATE_BENCH_BOUND_M,
         "last_recovery": last, "rpe_post_m_deg": [rpe_t, rpe_r], "rpe_post_bound": RPE_POST_BOUND,
     }))
     print("time serving path: " + "; ".join(f"batch of {n}: {n / sec:.2f} frames/s ({sec * 1e3:.1f} ms)"
@@ -802,7 +1027,7 @@ def rectification_path(frames, device, card):
     """Phase 7: distorted lenses, flagDoUndistortion=True, track_stereo_batch."""
     from visual_odometry_ros_tpu_torch.io import ate_rmse
     from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO
-    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
     il, ir, poses = frames["distorted"]
     cfg = bench_config()
@@ -813,7 +1038,7 @@ def rectification_path(frames, device, card):
     cfg.T_lr[0, 3] = 0.5
     cfg.flagDoUndistortion = True
     vo = StereoVO(cfg, device=device)
-    KK.reset_launch_counts()
+    reset_counts()
     sync(device)
     t = time.perf_counter()
     vo.track_stereo_batch(il, ir)
@@ -841,19 +1066,19 @@ def _mono_run(imgs, device) -> dict:
     by frame and batch by batch from a reset. Also keeps the state before
     the first track_batch frame (`snap`: (state_to_numpy, frame index))."""
     from visual_odometry_ros_tpu_torch.models.mono_vo import MonoVO, state_to_numpy
-    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
     vo = MonoVO(mono_config(), device=device)
-    KK.reset_launch_counts()
+    reset_counts()
     per_frame = []
 
     def step(i, timed=False):
-        before = dict(KK.LAUNCHES)
+        before = counts()
         sync(device)
         t = time.perf_counter()
         _, st = vo.track_image(imgs[i], timed=timed)
         sync(device)
-        per_frame.append(dict({k: KK.LAUNCHES[k] - before[k] for k in before}, frame=i, phase=st["phase"],
+        per_frame.append(dict(diff(before), frame=i, phase=st["phase"],
                               ms=(time.perf_counter() - t) * 1e3, keyframe=st["keyframe"],
                               fallback=st.get("used_fallback", False), recovered=st.get("recovered", 0)))
         return st
@@ -869,26 +1094,30 @@ def _mono_run(imgs, device) -> dict:
     snap = (state_to_numpy(vo.state), i)
     batches = []
     for a, b in mono_chunks(i):
-        before = dict(KK.LAUNCHES)
+        before = counts()
         sync(device)
         t = time.perf_counter()
         vo.track_batch(imgs[a:b])
         sync(device)
-        batches.append(dict({k: KK.LAUNCHES[k] - before[k] for k in before}, frames=b - a,
-                            s=time.perf_counter() - t))
+        batches.append(dict(diff(before), frames=b - a, s=time.perf_counter() - t))
     return dict(vo=vo, boot=boot, stage_ms=stage_ms, per_frame=per_frame, batches=batches, snap=snap,
-                launches=dict(KK.LAUNCHES))
+                launches=dict(KN.LAUNCHES))
 
 
 def _check_mono_launches(run) -> None:
     """KLT launches: none on the first frame, one klt_pyr on an init frame,
     one klt_pyr and one klt_scale on a steady frame; a fallback, recovery
-    or keyframe step adds none."""
+    or keyframe step adds none. Pose: one robust solve on a steady frame,
+    and the PnP polishes of a recovery; one pose_gn launch for each solve."""
     want = {"first": (0, 0), "init": (1, 0), "init_reanchor": (1, 0), "bootstrapped": (1, 0), "steady": (1, 1)}
     for f in run["per_frame"]:
         assert (f["klt_pyr"], f["klt_scale"]) == want[f["phase"]], f"mono KLT launches of a frame: {f}"
+        assert f["pose_gn"] == f["pose_calls"] and f["pose_robust"] == (f["phase"] == "steady"), (
+            f"mono pose_gn launches of a frame: {f}")
     for b in run["batches"]:
         assert b["klt_pyr"] == b["klt_scale"] == b["frames"], f"mono KLT launches of a batch: {b}"
+        assert b["pose_gn"] == b["pose_calls"] and b["pose_robust"] == b["frames"], (
+            f"mono pose_gn launches of a batch: {b}")
 
 
 def mono_path(frames, device, card) -> dict:
@@ -1131,15 +1360,15 @@ def image_api_path(sites) -> tuple:
     """Phase 9: each image-level call once with the counts reset: exactly
     one klt_pyr launch, and (p1, ok) against the same call on the plain
     versions. Returns (launches, compare rows)."""
-    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
-    total = {k: 0 for k in KK.LAUNCHES}
+    total = {k: 0 for k in KN.LAUNCHES}
     rows = []
     for name, site in sites.items():
-        KK.reset_launch_counts()
+        KN.reset_launch_counts()
         p_k, ok_k = site["call"]()
-        got = dict(KK.LAUNCHES)
-        assert got == {"klt_pyr": 1, "klt_scale": 0}, f"{name}: launches {got}, expected one klt_pyr"
+        got = dict(KN.LAUNCHES)
+        assert got == {"klt_pyr": 1, "klt_scale": 0, "pose_gn": 0}, f"{name}: launches {got}, expected one klt_pyr"
         for k in total:
             total[k] += got[k]
         with plain_kernels():
@@ -1224,7 +1453,6 @@ def frame_launch_log():
     klt_scale, replenish, frames}], and the StereoVO the calls ran on
     (log[i]["vo"])."""
     from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO
-    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
 
     log, rep = [], [0]
     orig = {n: getattr(StereoVO, n) for n in ("track_stereo_images", "track_stereo_batch", "_replenish")}
@@ -1235,12 +1463,11 @@ def frame_launch_log():
 
     def logged(name):
         def run(self, *a, **kw):
-            before = dict(KK.LAUNCHES)
+            before = counts()
             rep[0] = 0
             out = orig[name](self, *a, **kw)
             frames = len(out) if name == "track_stereo_batch" else 1
-            log.append(dict({k: KK.LAUNCHES[k] - before[k] for k in before}, replenish=rep[0], frames=frames,
-                            vo=self))
+            log.append(dict(diff(before), replenish=rep[0], frames=frames, vo=self))
             return out
         return run
 
@@ -1261,18 +1488,18 @@ def cli_path(frames, card) -> dict:
     world. Returns the launch counts."""
     from visual_odometry_ros_tpu_torch import run_vo
     from visual_odometry_ros_tpu_torch.io.trajectory import load_kitti_trajectory
-    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
     work = os.path.join(ROOT, "build", "chip_smoke_cli")
     t = time.perf_counter()
     layouts = kitti_layouts(work, frames)
     print(f"cli: wrote {N_MAIN} KITTI stereo pairs at full width and cropped in {time.perf_counter() - t:.1f} s")
-    runs, total = {}, {k: 0 for k in KK.LAUNCHES}
+    runs, total = {}, {k: 0 for k in KN.LAUNCHES}
     for tag, layout, extra in (("full", "full", ["--stage-timing"]), ("full_batch", "full", ["--batch", str(CLI_BATCH)]),
                                ("crop", "crop", [])):
         root, cfg = layouts[layout]
         out = os.path.join(work, tag)
-        KK.reset_launch_counts()
+        reset_counts()
         with frame_launch_log() as log:
             summary = run_vo.main(["--dataset", "kitti", "--root", root, "--config", cfg, "--mode", "stereo",
                                    "--quiet", "--out", out] + extra)
@@ -1290,6 +1517,8 @@ def cli_path(frames, card) -> dict:
         n_rep = sum(e["replenish"] for e in log)
         assert launches["klt_scale"] == n_tracked and launches["klt_pyr"] == 2 * n_tracked + n_rep, (
             f"CLI {tag}: launches {launches} with {n_rep} replenishes over {n_tracked} tracked frames")
+        n_robust = sum(e["pose_robust"] for e in log)
+        assert n_robust == n_tracked, f"CLI {tag}: {n_robust} robust pose solves over {n_tracked} tracked frames"
         assert not any(s.get("recovered", 0) for s in vo.stats_log), f"CLI {tag}: recovery fired"
         with open(os.path.join(out, "stats.jsonl")) as f:
             recs = [json.loads(line) for line in f]
@@ -1322,7 +1551,7 @@ def cli_path(frames, card) -> dict:
     assert dpos <= CLI_BATCH_TOL_M, f"CLI batch and per-frame positions differ by {dpos:.2e} m"
 
     # The mono CLI on the synthetic two-plane world.
-    KK.reset_launch_counts()
+    reset_counts()
     t = time.perf_counter()
     summary = run_vo.main(["--dataset", "synthetic", "--mode", "mono", "--frames", str(CLI_MONO_FRAMES),
                            "--out", os.path.join(work, "mono"), "--quiet"])
@@ -1401,10 +1630,10 @@ def accuracy_path(frames, card) -> tuple:
     its kernel launch counts and its pose fails."""
     from visual_odometry_ros_tpu_torch import eval_accuracy as EA
     from visual_odometry_ros_tpu_torch.io import ate_rmse, rpe
-    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
     il, ir, poses = frames["mono"]
-    KK.reset_launch_counts()
+    reset_counts()
     with frame_launch_log() as log:
         traj, wall, slog = EA.run_stereo(il, ir, "on", "cuda")
     launches = launched("accuracy leg")
@@ -1425,8 +1654,11 @@ def accuracy_path(frames, card) -> tuple:
     print(f"time accuracy leg: {N_MONO} frames in {wall:.2f} s ({N_MONO / wall:.2f} frames/s, "
           f"track_stereo_batch in chunks of {EA.CHUNK}, float32 640x480); on {card}")
     # Every tracked frame runs one klt_scale; two klt_pyr (track, stereo)
-    # and one more per replenish, unless a recovery replaced its tracks.
+    # and one more per replenish, unless a recovery replaced its tracks; one
+    # robust pose solve; pose_gn once per solve (`launched`).
     assert launches["klt_scale"] == tracked, f"accuracy leg: {launches} over {tracked} tracked frames"
+    n_robust = sum(c["pose_robust"] for c in calls)
+    assert n_robust == tracked, f"accuracy leg: {n_robust} robust pose solves over {tracked} tracked frames"
     assert ate <= 3 * ACC_REF_ATE_M, f"accuracy leg ATE {ate:.4f} m above 3x {ACC_REF_ATE_M} m"
     return launches, fails
 
@@ -1446,7 +1678,7 @@ def measurement_legs(frames, card, acc_fails: int) -> dict:
     from visual_odometry_ros_tpu_torch import eval_accuracy as EA
     from visual_odometry_ros_tpu_torch import h2d_overlap_probe as H2D
     from visual_odometry_ros_tpu_torch import profile_stages as PS
-    from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
     out = os.path.join(ROOT, "build", "chip_smoke_legs")
     os.makedirs(out, exist_ok=True)
@@ -1463,16 +1695,16 @@ def measurement_legs(frames, card, acc_fails: int) -> dict:
         d = part["device"]
         print(json.dumps({"profile": name, "idle_share": d["idle_share"], "busy_ms": d["busy_ms"],
                           "window_ms": d["window_ms"], "device_events": d["device_events"],
-                          "klt_trace_events": d["klt_trace_events"], "klt_launches": d["klt_launches"],
+                          "kernel_trace_events": d["kernel_trace_events"], "kernel_launches": d["kernel_launches"],
                           "host_syncs": part["host_syncs"], "card": card}))
-        assert d["klt_trace_events"] == d["klt_launches"] and d["klt_launches"]["klt_pyr"] > 0, (
-            f"{name}: the trace's KLT kernels {d['klt_trace_events']} are not the launches counted "
-            f"{d['klt_launches']}")
+        assert d["kernel_trace_events"] == d["kernel_launches"] and min(d["kernel_launches"].values()) > 0, (
+            f"{name}: the trace's kernels {d['kernel_trace_events']} are not the launches counted "
+            f"{d['kernel_launches']}")
     t_prof = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     mil, mir, mposes = frames["mono"]
-    KK.reset_launch_counts()
+    reset_counts()
     _, ab = AB.run_ab(mil, mir, mposes, "cuda")
     launches = launched("A/B kernel leg")
     print(json.dumps({"ab_frames": ab, "card": card}))
@@ -1515,6 +1747,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA GPU")
     sys.path.insert(0, ROOT)
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
     from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
     from visual_odometry_ros_tpu_torch.ops.pyramid import build_pyramid
 
@@ -1532,9 +1765,9 @@ def main() -> int:
 
     # 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    KK.build()
-    regs = [ln.strip() for ln in KK.BUILD_INFO.get("ptxas", "").splitlines() if "registers" in ln]
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {KK.BUILD_INFO['library']}; ptxas: {regs}")
+    KN.build()
+    regs = [ln.strip() for ln in KN.BUILD_INFO.get("ptxas", "").splitlines() if "registers" in ln]
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {KN.BUILD_INFO['library']}; ptxas: {regs}")
 
     # 3. kernels against their plain versions, main-path shapes --------------
     dev = torch.device("cuda")
@@ -1642,50 +1875,74 @@ def main() -> int:
               f"{row['bound_ms']:.4f} ms by {row['bound_by']}, plain {row['plain_ms']:.4f} ms, wrapper host "
               f"{row['host_us']:.1f} us per call (N={n}) on {card}")
 
-    # 4.-8. the paths -------------------------------------------------------
-    per_frame_path(frames, dev, card)
-    serving = serving_path(frames, dev, card)
-    rectification_path(frames, dev, card)
-    mono = mono_path(frames, dev, card)
+    with pose_calls() as record:
+        # 4.-8. the paths, recording the pose stage's inputs ----------------------
+        with record() as rec4:
+            per_frame_path(frames, dev, card)
+        with record() as rec6:
+            serving = serving_path(frames, dev, card)
+        rectification_path(frames, dev, card)
+        with record() as rec8:
+            mono = mono_path(frames, dev, card)
 
-    # 9. image-level KLT ----------------------------------------------------
-    api_sites = image_api_sites(pairs, dev)
-    api, api_rows = image_api_path(api_sites)
-    cases["klt_pyr"] += api_rows
-    api_times = call_site_times(api_sites, card)
-    for name, row in api_times.items():
-        print(f"time {name}: device {row['ms']:.4f} ms per launch (100 back-to-back launches), bound "
-              f"{row['bound_ms']:.4f} ms by {row['bound_by']}, plain {row['plain_ms']:.4f} ms, call host "
-              f"{row['call_host_us']:.1f} us (N={N_FEAT}) on {card}")
+        # 3. (continued) pose_gn on the inputs phases 4, 6 and 8 recorded -------
+        # The PnP polishes: the first (a RANSAC winner's inlier set) and the
+        # one over the most valid points (a prior's polish over every valid
+        # point), so the one-pass solve is held over many active rows too.
+        mono_calls = rec8["pose_only_gn_mono_robust"]
+        polishes = rec6["pose_only_gn_mono"]
+        widest = max(polishes, key=lambda c: int(c[0][2].sum()))
+        pose_rows = pose_gn_checks({
+            "stereo_steady": ("pose_only_gn_stereo_robust", *rec4["pose_only_gn_stereo_robust"][-1]),
+            "mono_steady": ("pose_only_gn_mono_robust", *mono_calls[min(MONO_POSE_CALL, len(mono_calls) - 1)]),
+            "pnp_polish": ("pose_only_gn_mono", *polishes[0]),
+            "pnp_polish_widest": ("pose_only_gn_mono", *widest),
+        }, card)
+        del rec4, rec6, rec8
 
-    # 10. the CLI -----------------------------------------------------------
-    cli = cli_path(frames, card)
+        # 9. image-level KLT ----------------------------------------------------
+        api_sites = image_api_sites(pairs, dev)
+        api, api_rows = image_api_path(api_sites)
+        cases["klt_pyr"] += api_rows
+        api_times = call_site_times(api_sites, card)
+        for name, row in api_times.items():
+            print(f"time {name}: device {row['ms']:.4f} ms per launch (100 back-to-back launches), bound "
+                  f"{row['bound_ms']:.4f} ms by {row['bound_by']}, plain {row['plain_ms']:.4f} ms, call host "
+                  f"{row['call_host_us']:.1f} us (N={N_FEAT}) on {card}")
 
-    # 11. distributed BA ----------------------------------------------------
-    dist_ba_path(card)
+        # 10. the CLI -----------------------------------------------------------
+        cli = cli_path(frames, card)
 
-    # 12. the accuracy leg --------------------------------------------------
-    acc, acc_fails = accuracy_path(frames, card)
+        # 11. distributed BA ----------------------------------------------------
+        dist_ba_path(card)
 
-    # 13. the measurement legs ----------------------------------------------
-    ab = measurement_legs(frames, card, acc_fails)
-    launches = {k: serving[k] + mono[k] + api[k] + cli[k] + acc[k] + ab[k] for k in serving}
+        # 12. the accuracy leg --------------------------------------------------
+        acc, acc_fails = accuracy_path(frames, card)
+
+        # 13. the measurement legs ----------------------------------------------
+        ab = measurement_legs(frames, card, acc_fails)
+        launches = {k: serving[k] + mono[k] + api[k] + cli[k] + acc[k] + ab[k] for k in serving}
 
     # result ----------------------------------------------------------------
     replaces = {
         "klt_pyr": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:380",
         "klt_scale": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:621",
+        # Not a Pallas kernel: the device-side lax.while_loop of the pose solve.
+        "pose_gn": "visual_odometry_ros_tpu/ops/pose_gn.py:87",
     }
+    timing["pose_gn"] = pose_rows["stereo_steady"]
+    max_err = {name: max(c["max_dp_px"] for c in cases[name]) for name in cases}
+    max_err["pose_gn"] = max(r["max_abs_err_T10"] for r in pose_rows.values())
+    source = {"klt_pyr": "klt.cu", "klt_scale": "klt.cu", "pose_gn": "pose_gn.cu"}
     table = {"kernels": [
         {
-            "name": name, "route": "cuda", "source": "visual_odometry_ros_tpu_torch/csrc/klt.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": max(c["max_dp_px"] for c in cases[name]),
+            "name": name, "route": "cuda", "source": f"visual_odometry_ros_tpu_torch/csrc/{source[name]}",
+            "replaces": replaces[name], "launches": launches[name], "max_abs_err": max_err[name],
             "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
             "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
             "library_ms": None, "host_ms": timing[name]["host_us"] * 1e-3,
         }
-        for name in ("klt_pyr", "klt_scale")
+        for name in ("klt_pyr", "klt_scale", "pose_gn")
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

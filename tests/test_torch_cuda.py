@@ -1,4 +1,4 @@
-"""The hand-written KLT kernels and the ported pipeline on a CUDA GPU.
+"""The hand-written kernels (KLT, pose_gn) and the ported pipeline on a CUDA GPU.
 
 Every test here needs the card (marker `cuda`) and skips without one. The
 file imports no JAX, so it runs on a machine that has only the port's
@@ -26,7 +26,9 @@ from visual_odometry_ros_tpu_torch.models.stereo_vo import StereoVO  # noqa: E40
 from visual_odometry_ros_tpu_torch.ops import features as TF  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops import klt as KLT  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK  # noqa: E402
+from visual_odometry_ros_tpu_torch.ops import kernels as KN  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops import pnp as TPNP  # noqa: E402
+from visual_odometry_ros_tpu_torch.ops import pose_gn as TPG  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops.pyramid import build_pyramid  # noqa: E402
 from visual_odometry_ros_tpu_torch.utils import geometry as TG  # noqa: E402
 
@@ -68,11 +70,11 @@ def test_klt_level_kernel_matches_plain_version(dev, epi1d):
     p0 = _grid(dev)  # includes border features with partial windows
     p1 = (p0 + 0.7).contiguous()
     valid = torch.ones(len(p0), dtype=torch.bool, device=dev)
-    KK.reset_launch_counts()
+    KN.reset_launch_counts()
     k = KK.track_level(a, b, p0, p1, valid, radius=10, iters=15, epi1d=epi1d)
     r = KK.track_level_ref(a, b, p0, p1, valid, 10, 15, 0.03, 1e-4, epi1d)
     torch.cuda.synchronize()
-    assert KK.LAUNCHES["klt_pyr"] == 1
+    assert KN.LAUNCHES["klt_pyr"] == 1
     assert torch.equal(k[1], r[1]) and torch.equal(k[3], r[3])
     # Only the summation order differs (warp shuffle tree vs PyTorch reduction).
     torch.testing.assert_close(k[0], r[0], atol=1e-3, rtol=0)
@@ -87,11 +89,11 @@ def test_klt_scale_kernel_matches_plain_version(dev):
     gen = torch.Generator().manual_seed(1)
     sc = (0.8 + 0.5 * torch.rand(len(p0), generator=gen)).to(dev)
     p1 = (p0 + torch.tensor([2.0, -1.0], device=dev)).contiguous()
-    KK.reset_launch_counts()
+    KN.reset_launch_counts()
     k = KK.track_scale(a, b, p0, p1, sc, valid, radius=11, iters=12)
     r = KK.track_scale_ref(a, b, p0, p1, sc, valid, 11, 12)
     torch.cuda.synchronize()
-    assert KK.LAUNCHES["klt_scale"] == 1
+    assert KN.LAUNCHES["klt_scale"] == 1
     assert torch.equal(k[2], r[2])
     torch.testing.assert_close(k[0], r[0], atol=1e-3, rtol=0)  # summation order only
 
@@ -146,11 +148,11 @@ def test_klt_pyr_climb_matches_plain_version(dev, epi1d):
     seed = (p0 + torch.tensor([2.0, 0.0 if epi1d else -1.0], device=dev)).contiguous()
     valid = torch.ones(len(p0), dtype=torch.bool, device=dev)
     args = (imgs0, imgs1, p0, seed, valid, 10, 15, 6, 0.03, 1e-4, epi1d)
-    KK.reset_launch_counts()
+    KN.reset_launch_counts()
     k = KK.track_pyr(*args)
     kb = KK.track_pyr_bidir(*args, back_levels=1)
     torch.cuda.synchronize()
-    assert KK.LAUNCHES["klt_pyr"] == 2
+    assert KN.LAUNCHES["klt_pyr"] == 2
     r = KK.track_pyr_ref(*args)
     rb = KK.track_pyr_bidir_ref(*args, back_levels=1)
     agree(k[0], k[1], r[0], r[1])
@@ -243,9 +245,9 @@ def test_one_klt_pyr_launch_per_pyramid_track(dev):
         lambda: KLT.track_with_prior_pyr(pyr0, pyr1, p0, prior, valid, params),
         lambda: KLT.track_bidirectional_pyr(pyr0, pyr1, p0, prior, valid, params, fb_scale=5.0, back_levels=1),
     ):
-        KK.reset_launch_counts()
+        KN.reset_launch_counts()
         call()
-        assert KK.LAUNCHES == {"klt_pyr": 1, "klt_scale": 0}
+        assert KN.LAUNCHES == {"klt_pyr": 1, "klt_scale": 0, "pose_gn": 0}
 
 
 def plane_cfg():
@@ -275,10 +277,10 @@ def test_pipeline_runs_on_cuda_through_the_kernels(dev):
     world = tio.PlaneSequence(z0=14.0, sx=0.3, sy=0.15, baseline=0.5)
     poses = tio.forward_trajectory(12, step=0.22, yaw_rate=0.0015)
     vo = StereoVO(plane_cfg(), device=dev)
-    KK.reset_launch_counts()
+    KN.reset_launch_counts()
     for T in poses:
         vo.track_stereo_images(*world.stereo_pair(T.astype(np.float64)))
-    assert KK.LAUNCHES["klt_pyr"] > 0 and KK.LAUNCHES["klt_scale"] > 0
+    assert KN.LAUNCHES["klt_pyr"] > 0 and KN.LAUNCHES["klt_scale"] > 0
     traj = np.stack(vo.trajectory)
     # Bounds of tests/test_stereo_vo_pipeline.py.
     assert tio.ate_rmse(traj, poses, align="none") < 0.05 * 0.22 * 11
@@ -439,10 +441,10 @@ def test_klt_pyr_bidir_2d_at_mono_call_sites(dev):
     valid = torch.ones(len(p0), dtype=torch.bool, device=dev)
     for seed in (p0.contiguous(), prior):
         args = (imgs0, imgs1, p0, seed, valid, 10, 15, 6, 0.03, 1e-4, False)
-        KK.reset_launch_counts()
+        KN.reset_launch_counts()
         k = KK.track_pyr_bidir(*args, back_levels=1)
         torch.cuda.synchronize()
-        assert KK.LAUNCHES == {"klt_pyr": 1, "klt_scale": 0}
+        assert KN.LAUNCHES == {"klt_pyr": 1, "klt_scale": 0, "pose_gn": 0}
         r = KK.track_pyr_bidir_ref(*args, back_levels=1)
         agree(k[0], k[1], r[0], r[1])
         agree(k[3], k[4], r[3], r[4])
@@ -478,12 +480,14 @@ def test_mono_pipeline_on_cuda_kernel_and_plain_legs(dev):
     for leg in ("auto", "off"):
         vo = MonoVO(mono_cfg(leg))
         assert vo.device.type == "cuda"
-        KK.reset_launch_counts()
+        KN.reset_launch_counts()
         for f in frames:
             vo.track_image(f)
-        runs[leg] = (vo, dict(KK.LAUNCHES))
+        runs[leg] = (vo, dict(KN.LAUNCHES))
     assert runs["auto"][1]["klt_pyr"] > 0 and runs["auto"][1]["klt_scale"] > 0
-    assert runs["off"][1] == {"klt_pyr": 0, "klt_scale": 0}
+    # The KLT switch leaves the pose solve alone: pose_gn runs on both legs.
+    assert runs["off"][1]["klt_pyr"] == runs["off"][1]["klt_scale"] == 0
+    assert runs["off"][1]["pose_gn"] == runs["auto"][1]["pose_gn"] > 0
     phases = [[s["phase"] for s in vo.stats_log] for vo, _ in runs.values()]
     assert phases[0] == phases[1] and "bootstrapped" in phases[0]
     b = phases[0].index("bootstrapped")
@@ -503,10 +507,10 @@ def test_image_level_klt_is_one_launch_and_agrees(dev, name):
     valid = torch.ones(len(p0), dtype=torch.bool, device=dev)
     kp = KLT.KLTParams(levels=3, use_kernel=True)
     args = (a, b, p0) if name == "track" else (a, b, p0, (p0 + torch.tensor([1.5, -0.5], device=dev)).contiguous())
-    KK.reset_launch_counts()
+    KN.reset_launch_counts()
     p_k, ok_k = getattr(KLT, name)(*args, valid, kp)
     torch.cuda.synchronize()
-    assert KK.LAUNCHES == {"klt_pyr": 1, "klt_scale": 0}
+    assert KN.LAUNCHES == {"klt_pyr": 1, "klt_scale": 0, "pose_gn": 0}
     p_r, ok_r = getattr(KLT, name)(*(x.cpu() for x in args), valid.cpu(), kp)
     agree(p_k.cpu(), ok_k.cpu(), p_r, ok_r, min_live=0.5)
 
@@ -539,9 +543,9 @@ def test_cli_on_a_tiny_kitti_layout_on_the_card(dev, tmp_path):
 
     root, cfg, poses = _tiny_kitti(tmp_path / "kitti")
     base = ["--dataset", "kitti", "--root", root, "--config", cfg, "--mode", "stereo", "--quiet"]
-    KK.reset_launch_counts()
+    KN.reset_launch_counts()
     s = run_vo.main(base + ["--out", str(tmp_path / "card")])
-    assert KK.LAUNCHES["klt_pyr"] > 0 and KK.LAUNCHES["klt_scale"] == 5
+    assert KN.LAUNCHES["klt_pyr"] > 0 and KN.LAUNCHES["klt_scale"] == 5
     run_vo.main(base + ["--out", str(tmp_path / "cpu"), "--device", "cpu"])
     assert s["frames"] == 6 and len((tmp_path / "card" / "stats.jsonl").read_text().splitlines()) == 6
     card, cpu = (np.loadtxt(tmp_path / d / "frame_poses.txt") for d in ("card", "cpu"))
@@ -641,7 +645,7 @@ def test_rectify_tool_on_cuda_matches_cpu(dev, tmp_path):
 @pytest.mark.cuda
 def test_profiler_klt_events_equal_the_launch_counters(dev):
     """profile_stages' trace of a pipeline batch on the card: the KLT kernels'
-    trace events equal ops/klt_kernels.LAUNCHES over the same window, the
+    trace events equal ops/kernels.LAUNCHES over the same window, the
     trace holds device time, and the sync count restores the debug mode."""
     from visual_odometry_ros_tpu_torch import profile_stages as PS
 
@@ -652,8 +656,9 @@ def test_profiler_klt_events_equal_the_launch_counters(dev):
     vo = StereoVO(plane_cfg(), device=dev)
     vo.track_stereo_batch(il[:4], ir[:4])
     win = PS.trace_window(lambda: vo.track_stereo_batch(il[4:], ir[4:]), dev)
-    assert win["klt_launches"]["klt_pyr"] >= 6 and win["klt_launches"]["klt_scale"] == 3
-    assert win["klt_trace_events"] == win["klt_launches"]
+    assert win["kernel_launches"]["klt_pyr"] >= 6 and win["kernel_launches"]["klt_scale"] == 3
+    assert win["kernel_launches"]["pose_gn"] >= 3  # one per tracked frame, more on a recovery
+    assert win["kernel_trace_events"] == win["kernel_launches"]
     assert 0 < win["busy_ms"] <= win["window_ms"] and 0 <= win["idle_share"] < 1 and win["top_ops"]
     state = vo.state
     im = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (il[6], ir[6])]
@@ -677,3 +682,135 @@ def test_pinned_upload_equals_the_pageable_one(dev):
         assert torch.equal(a, b) and np.array_equal(b.cpu().numpy(), h)
     for a, b in zip(page_f, pin_f):
         assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+# ----------------------------------------------------------------------------
+# pose_gn: the whole pose solve in one launch
+# ----------------------------------------------------------------------------
+
+
+def pose_problem(dev, kind, seed=21, n_out=None, behind=0, n_valid=None, nan_obs=False):
+    """tests/test_torch_pose_gn.py's stereo frame pair (KITTI intrinsics,
+    0.3 px noise, gross outliers, ~95% / ~80% valid) at `kind`'s N, on
+    `dev`: the arguments of POSE_CALLS[kind] before params."""
+    n = POSE_CALLS[kind][1]
+    rng = np.random.default_rng(seed)
+    n_out = n // 8 if n_out is None else n_out
+    X0 = np.stack([rng.uniform(-8, 8, n), rng.uniform(-2, 2, n), rng.uniform(4, 40, n)], -1).astype(np.float32)
+    T10 = TG.se3_exp(torch.tensor([0.02, -0.01, -0.25, 0.003, 0.008, -0.002])).numpy()
+    T_rl = np.eye(4, dtype=np.float32)
+    T_rl[0, 3] = -0.5371657
+    f, cx, cy = 718.856, 607.1928, 185.2157
+    Xl = X0 @ T10[:3, :3].T + T10[:3, 3]
+    Xr = Xl + T_rl[:3, 3]
+    pl = np.stack([Xl[:, 0] / Xl[:, 2] * f + cx, Xl[:, 1] / Xl[:, 2] * f + cy], -1)
+    pr = np.stack([Xr[:, 0] / Xr[:, 2] * f + cx, Xr[:, 1] / Xr[:, 2] * f + cy], -1)
+    pl = (pl + rng.normal(0, 0.3, pl.shape)).astype(np.float32)
+    pr = (pr + rng.normal(0, 0.3, pr.shape)).astype(np.float32)
+    pl[:n_out] += rng.uniform(-30, 30, (n_out, 2)).astype(np.float32)
+    vl = rng.uniform(size=n) > 0.05
+    vr = vl & (rng.uniform(size=n) > 0.2)
+    if behind:
+        X0[n_out:n_out + behind, 2] *= -1.0
+    if n_valid is not None:
+        vl[np.cumsum(vl) > n_valid] = False
+        vr &= vl
+    if nan_obs:
+        pl[np.flatnonzero(vl)[-1], 0] = np.nan
+    t = {k: torch.as_tensor(v, device=dev) for k, v in dict(X0=X0, pl=pl, pr=pr, vl=vl, vr=vr, T_rl=T_rl).items()}
+    T0 = torch.eye(4, device=dev)
+    if "mono" in kind:
+        return (t["X0"], t["pl"], t["vl"], f, f, cx, cy, T0)
+    return (t["X0"], t["pl"], t["pr"], t["vl"], t["vr"], f, f, cx, cy, t["T_rl"], T0)
+
+
+POSE_CASES = {
+    "main": ({}, {}),
+    "max_iters": ({}, dict(step_tol=0.0, cost_tol=0.0)),
+    "few_valid": (dict(n_out=0, n_valid=4), {}),
+    "cholesky_fails": (dict(nan_obs=True), {}),
+    "all_invalid": (dict(n_valid=0), {}),
+    "behind_camera": (dict(behind=100), {}),
+}
+POSE_CALLS = {  # function, N: stereo at the bench config's 1024 tracks, mono at 512
+    "stereo_robust": ("pose_only_gn_stereo_robust", 1024),
+    "mono_robust": ("pose_only_gn_mono_robust", 512),
+    "mono_polish": ("pose_only_gn_mono", 512),
+    "stereo_polish": ("pose_only_gn_stereo", 1024),
+}
+
+
+def pose_call(kind, args, params):
+    name = POSE_CALLS[kind][0]
+    fns = getattr(TPG, name), getattr(TPG, name + "_ref")
+    robust = name.endswith("_robust")
+    return [(lambda f=f: f(*args, params) if robust else (f(*args, params), None)) for f in fns]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(POSE_CASES))
+@pytest.mark.parametrize("kind", list(POSE_CALLS))
+def test_pose_gn_matches_plain_version(dev, kind, case):
+    """One pose_gn launch per solve; against the plain version on the card.
+    Only the sum order differs, which can move the stop test by an
+    iteration: T10 to 1e-4 (an extra iteration at the step_tol stop moves it
+    by less), the same ok, mean error to 1e-3 relative; a pose within 1e-4
+    moves a pixel by up to fx * 1e-4 (0.07 px): per-point error to 1e-3
+    relative plus that, and the same inliers except within that of the
+    threshold."""
+    kw, prm = POSE_CASES[case]
+    args = pose_problem(dev, kind, **kw)
+    params = TPG.PoseGNParams(**prm)
+    kernel, plain = pose_call(kind, args, params)
+    KN.reset_launch_counts()
+    rk, ek = kernel()
+    torch.cuda.synchronize()
+    assert KN.LAUNCHES == {"klt_pyr": 0, "klt_scale": 0, "pose_gn": 1}
+    rr, er = plain()
+    assert KN.LAUNCHES["pose_gn"] == 1  # the plain version launches nothing
+    assert bool(rk.ok) == bool(rr.ok)
+    torch.testing.assert_close(rk.T10, rr.T10, atol=1e-4, rtol=0)
+    intr = args[-6:-2] if "stereo" in kind else args[3:7]
+    px = intr[0] * 1e-4
+    e = TPG._reproj_err_px(rr.T10, args[0], args[1], *intr)
+    flip = rk.inliers != rr.inliers
+    assert not bool(flip.any()) or float((e[flip] - params.reproj_thresh).abs().max()) <= px
+    torch.testing.assert_close(rk.mean_err, rr.mean_err, rtol=1e-3, atol=0, equal_nan=True)
+    if ek is not None:
+        torch.testing.assert_close(ek, er, rtol=1e-3, atol=px, equal_nan=True)
+    if case == "max_iters":
+        assert int(rk.n_iter) == int(rr.n_iter) == params.max_iters * (2 if ek is not None else 1)
+    if case == "all_invalid":
+        assert not bool(rk.ok) and not bool(rk.inliers.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["stereo_robust", "mono_polish"])
+def test_pose_gn_relaunch_is_bit_identical_and_never_syncs(dev, kind):
+    """Two launches on the same inputs are bit-identical (the block's sums
+    run in a fixed order), and a call makes no host sync."""
+    args = pose_problem(dev, kind)
+    kernel, _ = pose_call(kind, args, TPG.PoseGNParams())
+    kernel()  # builds and loads the library before the sync check
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, b = kernel(), kernel()
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    flat = [t for t in (*a[0], a[1]) if t is not None], [t for t in (*b[0], b[1]) if t is not None]
+    assert all(torch.equal(x, y) for x, y in zip(*flat))
+
+
+@pytest.mark.cuda
+def test_pose_gn_refuses_what_it_cannot_serve(dev):
+    X0, pl, pr, vl, vr, fx, fy, cx, cy, T_rl, T0 = pose_problem(dev, "stereo_robust")
+    with pytest.raises(TypeError):  # dtype
+        TPG.pose_only_gn_stereo_robust(X0.double(), pl, pr, vl, vr, fx, fy, cx, cy, T_rl, T0)
+    with pytest.raises(ValueError):  # shape
+        TPG.pose_only_gn_stereo_robust(X0, pl[:-1].contiguous(), pr, vl, vr, fx, fy, cx, cy, T_rl, T0)
+    with pytest.raises(ValueError):  # mixed devices
+        TPG.pose_only_gn_mono(X0, pl, vl.cpu(), fx, fy, cx, cy, T0)
+    with pytest.raises(ValueError):  # contiguity
+        TPG.pose_only_gn_mono_robust(X0.T.contiguous().T, pl, vl, fx, fy, cx, cy, T0)

@@ -24,6 +24,7 @@ from visual_odometry_ros_tpu.ops.pyramid import build_pyramid_with_gradients as 
 from visual_odometry_ros_tpu.ops.pyramid import scharr_gradients as j_scharr  # noqa: E402
 from visual_odometry_ros_tpu.utils.interp import bilinear_sample as j_bilinear  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops import klt as TK  # noqa: E402
+from visual_odometry_ros_tpu_torch.ops import kernels as KN  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops.pyramid import build_pyramid_with_gradients as t_pyr  # noqa: E402
 from visual_odometry_ros_tpu_torch.ops.pyramid import scharr_gradients as t_scharr  # noqa: E402
@@ -274,7 +275,7 @@ def test_wrappers_use_plain_version_on_cpu_and_check_inputs():
     img0, img1 = shifted_pair(shift=(1.0, 1.0), seed=37)
     p0 = T(grid_features(120, 160))
     valid = torch.ones(len(p0), dtype=torch.bool)
-    KK.reset_launch_counts()
+    KN.reset_launch_counts()
     out = KK.track_level(T(img0), T(img1), p0, p0.clone(), valid, radius=7, iters=10)
     ref = KK.track_level_ref(T(img0), T(img1), p0, p0.clone(), valid, 7, 10)
     for a, b in zip(out, ref):
@@ -283,7 +284,7 @@ def test_wrappers_use_plain_version_on_cpu_and_check_inputs():
     out = KK.track_scale(T(img0), T(img1), p0, p0.clone(), sc, valid, radius=11, iters=5)
     for a, b in zip(out, KK.track_scale_ref(T(img0), T(img1), p0, p0.clone(), sc, valid, 11, 5)):
         assert torch.equal(a, b)
-    assert KK.LAUNCHES == {"klt_pyr": 0, "klt_scale": 0}  # plain versions never count
+    assert KN.LAUNCHES == {"klt_pyr": 0, "klt_scale": 0, "pose_gn": 0}  # plain versions never count
     with pytest.raises(TypeError):
         KK.track_level(T(img0).double(), T(img1), p0, p0, valid)
     with pytest.raises(ValueError):

@@ -52,8 +52,9 @@
 //     glue of ops/klt.py:_pyr_track, exact because the scalings are powers
 //     of two. One launch per track instead of one per level.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libklt.so klt.cu   (plain C interface, ctypes)
+// Build: ops/kernels.py compiles csrc/*.cu in one nvcc call
+//        (-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC; plain C interface, loaded with ctypes)
 
 #include <cuda_runtime.h>
 #include <stdint.h>

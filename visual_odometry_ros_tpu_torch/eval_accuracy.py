@@ -239,8 +239,10 @@ def evaluate(il, ir, poses, kernels: str = "auto", device="cuda", size=SIZE) -> 
     import torch
 
     from .io.trajectory import ate_rmse, rpe
+    from .ops import kernels as KN
 
     leg = resolve_kernels(kernels, device)
+    KN.reset_launch_counts()
     dist = float(np.sum(np.linalg.norm(np.diff(poses[:, :3, 3], axis=0), axis=-1)))
     print(f"stereo run ({device}, kernels {leg}) ...", flush=True)
     traj_s, wall_s, slog = run_stereo(il, ir, leg, device, size)
@@ -249,11 +251,13 @@ def evaluate(il, ir, poses, kernels: str = "auto", device="cuda", size=SIZE) -> 
     print(f"mono run ({device}, kernels {leg}) ...", flush=True)
     traj_m, wall_m, first = run_mono(list(il), leg, device, size)
     ate_m = float(ate_rmse(traj_m, poses, align="sim3"))
+    launches = dict(KN.LAUNCHES)
     on_card = torch.device(device).type == "cuda"
     return _de_nan({
         "platform": "cuda" if on_card else "cpu",
         "kernels": "cuda" if leg == "on" and on_card else "plain",
         "klt_leg": leg,
+        "launches": launches,
         "frames": len(poses),
         "size": list(size),
         "distance_m": dist,
@@ -343,8 +347,10 @@ def render_md(out: Path) -> None:
         "`python -m visual_odometry_ros_tpu_torch.eval_accuracy`. The JAX rows are read",
         "from `ACCURACY.json`, unchanged. Kernels: `cuda (kernel leg)` = the hand KLT",
         "kernels on the card; `plain (kernel leg)` = their plain PyTorch versions (CPU);",
-        "`plain (jnp leg)` = the port of the JAX jnp leg (plain PyTorch, no kernel);",
-        "`pallas` / `jnp` = the JAX legs.",
+        "`plain (jnp leg)` = the port of the JAX jnp leg (plain PyTorch, no KLT kernel);",
+        "`+ pose_gn` = the pose solve ran as the hand `pose_gn` kernel (rows that",
+        "record their kernel launches; on the card both legs run it); `pallas` / `jnp` =",
+        "the JAX legs.",
         "",
         "| row | platform | card | kernels | frames | dist (m) | stereo ATE (m) | stereo ATE %dist "
         "| stereo RPE t (m) | stereo RPE r (deg) | pose fails | recoveries | mono ATE sim3 (m) "
@@ -362,7 +368,8 @@ def render_md(out: Path) -> None:
         s, m = r["stereo"], r["mono"]
         lines.append(
             f"| {tag} | {r['platform']} | {r['card'] or 'CPU'} | {r['kernels']} "
-            f"({'kernel' if r['klt_leg'] == 'on' else 'jnp'} leg) | {r['frames']} "
+            f"({'kernel' if r['klt_leg'] == 'on' else 'jnp'} leg)"
+            f"{' + pose_gn' if r.get('launches', {}).get('pose_gn') else ''} | {r['frames']} "
             f"| {_fmt(r['distance_m'], 2)} | {_fmt(s['ate_rmse_m'])} | {_fmt(s['ate_pct_of_dist'], pct=True)} "
             f"| {_fmt(s['rpe_trans_m'])} | {_fmt(s['rpe_rot_deg'])} | {s['n_pose_fail']} | {s['n_recoveries']} "
             f"| {_fmt(m['ate_rmse_sim3_m'])} | {_fmt(m['ate_pct_of_dist'], pct=True)} | {_fmt(s['wall_s'], 1)} "

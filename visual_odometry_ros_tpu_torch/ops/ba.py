@@ -225,7 +225,7 @@ def ba_accept(mean_err_px, mean_err0_px, reproj_thresh: float):
 
 
 # All-reduces issued by solves over a process group (the counterpart of
-# `klt_kernels.LAUNCHES` for the distributed path): one per call of
+# `kernels.LAUNCHES` for the distributed path): one per call of
 # `_all_reduce`, whatever it packs, and the bytes of the buffers reduced.
 COLLECTIVES = {"all_reduce": 0, "bytes": 0}
 

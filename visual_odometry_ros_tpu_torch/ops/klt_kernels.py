@@ -46,38 +46,21 @@ launch the kernel or raise; nothing falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
+from .kernels import build
+from .kernels import check as _check
+from .kernels import launch as _launch
+from .kernels import one_device
 from .pyramid import scharr_gradients
 
 MAX_RADIUS = 11  # the kernels keep a (2r+1)^2 <= 23^2 window in registers
 MAX_LEVELS = 8  # pyramid levels one klt_pyr launch can climb
 
-# Launch counters: incremented by a wrapper exactly where it launches its
-# kernel. The plain versions never touch them.
-LAUNCHES = {"klt_pyr": 0, "klt_scale": 0}
-
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "klt.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-
-_LIB = None
-BUILD_INFO: dict = {}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
 # ---------------------------------------------------------------------------
-# Build (nvcc -> shared library with a plain C interface -> ctypes)
+# The C launchers' arguments (ops/kernels.py builds and loads the library)
 # ---------------------------------------------------------------------------
 
 
@@ -108,61 +91,6 @@ class _PyrArgs(ctypes.Structure):
         ("p0b_out", ctypes.c_void_p),
         ("live0_out", ctypes.c_void_p),
     ]
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    cand = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
-    for c in cand:
-        if os.path.exists(c):
-            return c
-    import shutil
-
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the KLT kernels need the CUDA toolkit to build")
-    return found
-
-
-def build() -> ctypes.CDLL:
-    """Compile csrc/klt.cu for sm_90a (once per source version) and load it.
-
-    The library lands in `build/kernels/` at the repository root, named by a
-    hash of the source. Raises RuntimeError with nvcc's stderr on failure."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libklt_{tag}.so"
-    t0 = time.perf_counter()
-    if not so.exists():
-        tmp = BUILD_DIR / f"libklt_{tag}.{os.getpid()}.tmp.so"
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(_SRC),
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)
-        (BUILD_DIR / f"libklt_{tag}.ptxas.txt").write_text(proc.stderr)
-    lib = ctypes.CDLL(str(so))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.klt_pyr_launch.argtypes = [P, P]
-    lib.klt_pyr_launch.restype = I
-    lib.klt_scale_launch.argtypes = [P, P, I, I, P, P, P, P, I, I, I, F, P, P, P, P]
-    lib.klt_scale_launch.restype = I
-    BUILD_INFO.update(
-        library=str(so),
-        seconds=time.perf_counter() - t0,
-        ptxas=(BUILD_DIR / f"libklt_{tag}.ptxas.txt").read_text()
-        if (BUILD_DIR / f"libklt_{tag}.ptxas.txt").exists() else "",
-    )
-    _LIB = lib
-    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -393,17 +321,6 @@ def track_scale_ref(img0, img1, p0, p1_init, scale_change, valid, radius=11, ite
 # ---------------------------------------------------------------------------
 
 
-def _check(name, t, dtype, shape=None):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _check_common(imgs0, imgs1, p0, p1_init, valid, radius):
     """Checks two pyramids (lists of level images, level 0 first) and the
     point arrays; returns their device."""
@@ -421,21 +338,7 @@ def _check_common(imgs0, imgs1, p0, p1_init, valid, radius):
     _check("p0", p0, torch.float32, (N, 2))
     _check("p1_init", p1_init, torch.float32, (N, 2))
     _check("valid", valid, torch.bool, (N,))
-    devs = {t.device for t in (*imgs0, *imgs1, p0, p1_init, valid)}
-    if len(devs) != 1:
-        raise ValueError(f"all inputs must share one device, got {sorted(map(str, devs))}")
-    dev = p0.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
-def _launch(name: str, fn, argv: tuple) -> None:
-    """Call the C launcher `fn(*argv)` and count the launch."""
-    rc = fn(*argv)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
-    LAUNCHES[name] += 1
+    return one_device((*imgs0, *imgs1, p0, p1_init, valid))
 
 
 def _pyr_launch(imgs0, imgs1, p0, p1_init, valid, radius, iters, iters_coarse, eps, min_eig, epi1d,

@@ -1,21 +1,32 @@
 """Pose-only Gauss-Newton with Huber weights: mono and stereo, each with its
 two-pass gate.
 
-Counterpart of `visual_odometry_ros_tpu/ops/pose_gn.py`. The reference's
-`lax.while_loop` becomes a host loop that checks its stop flag once every
-`_CHECK_EVERY` iterations: iterations after the stop are masked no-ops, so
-the result equals the while loop's while the host syncs a few times per
-solve instead of once per iteration.
+Counterpart of `visual_odometry_ros_tpu/ops/pose_gn.py`. The reference runs
+its solve as a `lax.while_loop` on the device; here one launch of the
+hand-written kernel `pose_gn` (csrc/pose_gn.cu) computes a whole solve on
+the card: one pass (`pose_only_gn_mono`, `pose_only_gn_stereo`) or the
+robust two-pass solve with its gate and arbitration
+(`pose_only_gn_stereo_robust`, `pose_only_gn_mono_robust`), outputs left on
+the device, no host sync.
+
+The plain PyTorch versions (`*_ref`) define the semantics. Their loop runs
+on the host and checks its stop flag once every `_CHECK_EVERY` iterations:
+iterations after the stop are masked no-ops, so the result equals the while
+loop's. On CPU tensors the public functions run the plain versions; on CUDA
+tensors they launch the kernel or raise. Nothing falls back.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from ..utils import geometry as geo
 from ..utils.robust import huber_weight
+from .kernels import build, check, one_device
+from .kernels import launch as _launch
 
 _CHECK_EVERY = 4
 
@@ -65,8 +76,12 @@ def _solve6(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
 
 
-def _pose_gn_core(residual_fn, T_init, valid, params: PoseGNParams, n_rows: int) -> PoseGNResult:
-    """Shared damped-GN loop. residual_fn(T) -> (r [N, n_rows], J [N, n_rows, 6])."""
+def _pose_gn_core(residual_fn, T_init, valid, params: PoseGNParams, n_rows: int,
+                  counts: dict | None = None) -> PoseGNResult:
+    """Shared damped-GN loop. residual_fn(T) -> (r [N, n_rows], J [N, n_rows, 6]).
+    `counts` (optional, host syncs) gains the work the solve needed: the
+    weighted (valid) points times the iterations run, and the N points of
+    the final evaluation."""
     dev = T_init.device
     w_valid = valid.to(torch.float32)
     n_valid = torch.clamp(torch.sum(w_valid), min=1.0)
@@ -110,11 +125,16 @@ def _pose_gn_core(residual_fn, T_init, valid, params: PoseGNParams, n_rows: int)
         & (n_inl >= params.min_inliers)
         & torch.isfinite(mean_err)
     )
+    if counts is not None:
+        rows = "mono" if n_rows == 2 else "stereo"
+        for k, v in ((f"pose_point_iter_{rows}", int(valid.sum()) * int(it)),
+                     (f"pose_point_eval_{rows}", valid.shape[0])):
+            counts[k] = counts.get(k, 0) + v
     return PoseGNResult(T, inliers, mean_err, ok, it)
 
 
-def pose_only_gn_mono(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
-                      params: PoseGNParams = PoseGNParams()) -> PoseGNResult:
+def pose_only_gn_mono_ref(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
+                          params: PoseGNParams = PoseGNParams(), counts: dict | None = None) -> PoseGNResult:
     """Refine T_10 so that pi(T_10 X0) matches pts1 (2 residual rows per
     point). X0 [N, 3] in frame-0 camera coordinates, pts1 [N, 2] pixels."""
 
@@ -128,11 +148,12 @@ def pose_only_gn_mono(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
         front = (z > 0.01)[:, None]
         return torch.where(front, r, 0.0), torch.where(front[:, :, None], J, 0.0)
 
-    return _pose_gn_core(residual_fn, T_10_init, valid, params, n_rows=2)
+    return _pose_gn_core(residual_fn, T_10_init, valid, params, n_rows=2, counts=counts)
 
 
-def pose_only_gn_stereo(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl, T_10_init,
-                        params: PoseGNParams = PoseGNParams()) -> PoseGNResult:
+def pose_only_gn_stereo_ref(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl,
+                            T_10_init, params: PoseGNParams = PoseGNParams(),
+                            counts: dict | None = None) -> PoseGNResult:
     """Stereo pose refinement with 4 residual rows per point (left u, v,
     right u, v). X0 [N, 3] in the previous left-camera frame."""
     R_rl = T_rl[:3, :3]
@@ -159,7 +180,7 @@ def pose_only_gn_stereo(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_
         )
         return r, J
 
-    return _pose_gn_core(residual_fn, T_10_init, valid_l, params, n_rows=4)
+    return _pose_gn_core(residual_fn, T_10_init, valid_l, params, n_rows=4, counts=counts)
 
 
 def _reproj_err_px(T, X0, pts1, fx, fy, cx, cy):
@@ -173,20 +194,21 @@ def _reproj_err_px(T, X0, pts1, fx, fy, cx, cy):
     return torch.where(z > 0.01, err, 1e6)
 
 
-def pose_only_gn_stereo_robust(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl,
-                               T_10_init, params: PoseGNParams = PoseGNParams(),
-                               gate_scale: float = 2.0):
+def pose_only_gn_stereo_robust_ref(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl,
+                                   T_10_init, params: PoseGNParams = PoseGNParams(),
+                                   gate_scale: float = 2.0, counts: dict | None = None):
     """Two-pass gated pose GN: solve, hard-gate at gate_scale x reproj_thresh
     under the better of {pass-1 pose, prior}, re-solve on survivors, and
-    arbitrate on inlier counts over the common point set.
+    arbitrate on inlier counts over the common point set. `counts` as in
+    `_pose_gn_core`, plus the N points of the gate.
     Returns (PoseGNResult, err_px [N] under the chosen pose)."""
-    res1 = pose_only_gn_stereo(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl,
-                               T_10_init, params)
+    res1 = pose_only_gn_stereo_ref(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl,
+                                   T_10_init, params, counts)
     T1 = torch.where(res1.ok, res1.T10, T_10_init)
     err1 = _reproj_err_px(T1, X0, pts_l1, fx, fy, cx, cy)
     keep = valid_l & (err1 < gate_scale * params.reproj_thresh)
-    res2 = pose_only_gn_stereo(X0, pts_l1, pts_r1, keep, valid_r & keep, fx, fy, cx, cy, T_rl,
-                               T1, params)
+    res2 = pose_only_gn_stereo_ref(X0, pts_l1, pts_r1, keep, valid_r & keep, fx, fy, cx, cy, T_rl,
+                                   T1, params, counts)
     err2_all = _reproj_err_px(res2.T10, X0, pts_l1, fx, fy, cx, cy)
     n1 = torch.sum(valid_l & (err1 < params.reproj_thresh))
     n2 = torch.sum(valid_l & (err2_all < params.reproj_thresh))
@@ -205,19 +227,22 @@ def pose_only_gn_stereo_robust(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx,
         & (n_fin + 2 >= n_prior)
     )
     mean_err = torch.where(use2, res2.mean_err, res1.mean_err)
+    if counts is not None:
+        counts["pose_point_gate"] = counts.get("pose_point_gate", 0) + X0.shape[0]
     return PoseGNResult(T, inliers, mean_err, ok, res1.n_iter + res2.n_iter), err
 
 
-def pose_only_gn_mono_robust(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
-                             params: PoseGNParams = PoseGNParams(), gate_scale: float = 2.0):
-    """Mono twin of `pose_only_gn_stereo_robust`: solve, hard-gate, re-solve
+def pose_only_gn_mono_robust_ref(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
+                                 params: PoseGNParams = PoseGNParams(), gate_scale: float = 2.0,
+                                 counts: dict | None = None):
+    """Mono twin of `pose_only_gn_stereo_robust_ref`: solve, hard-gate, re-solve
     on the survivors, arbitrate on inlier counts over the common point set.
     Returns (PoseGNResult, err_px [N] under the chosen pose)."""
-    res1 = pose_only_gn_mono(X0, pts1, valid, fx, fy, cx, cy, T_10_init, params)
+    res1 = pose_only_gn_mono_ref(X0, pts1, valid, fx, fy, cx, cy, T_10_init, params, counts)
     T1 = torch.where(res1.ok, res1.T10, T_10_init)
     err1 = _reproj_err_px(T1, X0, pts1, fx, fy, cx, cy)
     keep = valid & (err1 < gate_scale * params.reproj_thresh)
-    res2 = pose_only_gn_mono(X0, pts1, keep, fx, fy, cx, cy, T1, params)
+    res2 = pose_only_gn_mono_ref(X0, pts1, keep, fx, fy, cx, cy, T1, params, counts)
     err2_all = _reproj_err_px(res2.T10, X0, pts1, fx, fy, cx, cy)
     n1 = torch.sum(valid & (err1 < params.reproj_thresh))
     n2 = torch.sum(valid & (err2_all < params.reproj_thresh))
@@ -236,4 +261,154 @@ def pose_only_gn_mono_robust(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
         & (n_fin + 2 >= n_prior)
     )
     mean_err = torch.where(use2, res2.mean_err, res1.mean_err)
+    if counts is not None:
+        counts["pose_point_gate"] = counts.get("pose_point_gate", 0) + X0.shape[0]
     return PoseGNResult(T, inliers, mean_err, ok, res1.n_iter + res2.n_iter), err
+
+
+# ---------------------------------------------------------------------------
+# The kernel route
+# ---------------------------------------------------------------------------
+
+
+class _Args(ctypes.Structure):
+    """`pose_gn::Args` of csrc/pose_gn.cuh, field for field."""
+
+    _fields_ = [
+        ("X0", ctypes.c_void_p),
+        ("pts_l", ctypes.c_void_p),
+        ("pts_r", ctypes.c_void_p),
+        ("valid_l", ctypes.c_void_p),
+        ("valid_r", ctypes.c_void_p),
+        ("T_rl", ctypes.c_void_p),
+        ("T_init", ctypes.c_void_p),
+        ("N", ctypes.c_int),
+        ("stereo", ctypes.c_int),
+        ("passes", ctypes.c_int),
+        ("fx", ctypes.c_float),
+        ("fy", ctypes.c_float),
+        ("cx", ctypes.c_float),
+        ("cy", ctypes.c_float),
+        ("max_iters", ctypes.c_int),
+        ("huber_delta", ctypes.c_float),
+        ("lam", ctypes.c_float),
+        ("step_tol", ctypes.c_float),
+        ("cost_tol", ctypes.c_float),
+        ("reproj_thresh", ctypes.c_float),
+        ("min_inlier_ratio", ctypes.c_float),
+        ("min_inliers", ctypes.c_int),
+        ("gate_thresh", ctypes.c_float),
+        ("T_out", ctypes.c_void_p),
+        ("inliers", ctypes.c_void_p),
+        ("err", ctypes.c_void_p),
+        ("mean_err", ctypes.c_void_p),
+        ("ok", ctypes.c_void_p),
+        ("n_iter", ctypes.c_void_p),
+    ]
+
+
+def _device(X0, pts_l, valid_l, T_init, pts_r=None, valid_r=None, T_rl=None) -> torch.device:
+    """Checks the inputs as the kernel takes them (on either device); returns
+    their one device."""
+    f32 = torch.float32
+    check("X0", X0, f32)
+    N = X0.shape[0]
+    check("X0", X0, f32, (N, 3))
+    check("pts", pts_l, f32, (N, 2))
+    check("valid", valid_l, torch.bool, (N,))
+    check("T_10_init", T_init, f32, (4, 4))
+    ts = [X0, pts_l, valid_l, T_init]
+    if pts_r is not None:
+        check("pts_r1", pts_r, f32, (N, 2))
+        check("valid_r", valid_r, torch.bool, (N,))
+        check("T_rl", T_rl, f32, (4, 4))
+        ts += [pts_r, valid_r, T_rl]
+    return one_device(ts)
+
+
+def _pack(X0, pts_l, pts_r, valid_l, valid_r, T_rl, T_init, fx, fy, cx, cy,
+          params: PoseGNParams, passes: int, gate_scale: float):
+    """The outputs of one solve, allocated on the inputs' device, and the
+    `_Args` that point the kernel at inputs and outputs (pts_r None: mono).
+    Returns (PoseGNResult, err [N] or None for one pass, args)."""
+    dev = X0.device
+    N = X0.shape[0]
+    f32 = torch.float32
+    T = torch.empty((4, 4), dtype=f32, device=dev)
+    inliers = torch.empty((N,), dtype=torch.bool, device=dev)
+    mean_err = torch.empty((), dtype=f32, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    n_iter = torch.empty((), dtype=torch.int32, device=dev)
+    err = torch.empty((N,), dtype=f32, device=dev) if passes == 2 else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    args = _Args(
+        ptr(X0), ptr(pts_l), ptr(pts_r), ptr(valid_l), ptr(valid_r), ptr(T_rl), ptr(T_init), N,
+        int(pts_r is not None), passes, float(fx), float(fy), float(cx), float(cy),
+        int(params.max_iters), float(params.huber_delta), float(params.lam), float(params.step_tol),
+        float(params.cost_tol), float(params.reproj_thresh), float(params.min_inlier_ratio),
+        int(params.min_inliers), float(gate_scale * params.reproj_thresh),
+        ptr(T), ptr(inliers), ptr(err), ptr(mean_err), ptr(ok), ptr(n_iter),
+    )
+    return PoseGNResult(T, inliers, mean_err, ok, n_iter), err, args
+
+
+def _pg_launch(*inputs):
+    """One pose_gn launch on CUDA tensors (`_pack`'s arguments). Returns
+    (PoseGNResult, err [N] or None for one pass), all on the device."""
+    lib = build()
+    res, err, args = _pack(*inputs)
+    dev = inputs[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch("pose_gn", lib.pose_gn_launch, (ctypes.byref(args), stream))
+    return res, err
+
+
+def pose_only_gn_mono(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
+                      params: PoseGNParams = PoseGNParams()) -> PoseGNResult:
+    """Refine T_10 so that pi(T_10 X0) matches pts1 (2 residual rows per
+    point). X0 [N, 3] in frame-0 camera coordinates, pts1 [N, 2] pixels,
+    valid [N] bool, T_10_init [4, 4]; float32, contiguous, one device."""
+    if _device(X0, pts1, valid, T_10_init).type == "cpu":
+        return pose_only_gn_mono_ref(X0, pts1, valid, fx, fy, cx, cy, T_10_init, params)
+    return _pg_launch(X0, pts1, None, valid, None, None, T_10_init, fx, fy, cx, cy, params, 1, 0.0)[0]
+
+
+def pose_only_gn_stereo(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl, T_10_init,
+                        params: PoseGNParams = PoseGNParams()) -> PoseGNResult:
+    """Stereo pose refinement with 4 residual rows per point (left u, v,
+    right u, v). X0 [N, 3] in the previous left-camera frame; T_rl maps
+    left-camera to right-camera coordinates."""
+    if _device(X0, pts_l1, valid_l, T_10_init, pts_r1, valid_r, T_rl).type == "cpu":
+        return pose_only_gn_stereo_ref(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl,
+                                       T_10_init, params)
+    return _pg_launch(X0, pts_l1, pts_r1, valid_l, valid_r, T_rl, T_10_init, fx, fy, cx, cy, params,
+                      1, 0.0)[0]
+
+
+def pose_only_gn_stereo_robust(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl,
+                               T_10_init, params: PoseGNParams = PoseGNParams(),
+                               gate_scale: float = 2.0):
+    """Two-pass gated pose GN: solve, hard-gate at gate_scale x reproj_thresh
+    under the better of {pass-1 pose, prior}, re-solve on survivors, and
+    arbitrate on inlier counts over the common point set.
+    Returns (PoseGNResult, err_px [N] under the chosen pose)."""
+    if _device(X0, pts_l1, valid_l, T_10_init, pts_r1, valid_r, T_rl).type == "cpu":
+        return pose_only_gn_stereo_robust_ref(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy,
+                                              T_rl, T_10_init, params, gate_scale)
+    return _pg_launch(X0, pts_l1, pts_r1, valid_l, valid_r, T_rl, T_10_init, fx, fy, cx, cy, params,
+                      2, gate_scale)
+
+
+def pose_only_gn_mono_robust(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
+                             params: PoseGNParams = PoseGNParams(), gate_scale: float = 2.0):
+    """Mono twin of `pose_only_gn_stereo_robust`.
+    Returns (PoseGNResult, err_px [N] under the chosen pose)."""
+    if _device(X0, pts1, valid, T_10_init).type == "cpu":
+        return pose_only_gn_mono_robust_ref(X0, pts1, valid, fx, fy, cx, cy, T_10_init, params,
+                                            gate_scale)
+    return _pg_launch(X0, pts1, None, valid, None, None, T_10_init, fx, fy, cx, cy, params, 2,
+                      gate_scale)

@@ -16,7 +16,7 @@ replenishment cascade and its sub-stages, and the keyframe step:
 Each is the min over trials (the reference's number) with the median and
 the max beside it. Then, over one steady `track_stereo_batch` call, the
 device's busy and idle share and its top operations (`torch.profiler`; the
-KLT kernels' trace events are held to `ops/klt_kernels.LAUNCHES`), the host
+hand-written kernels' trace events are held to `ops/kernels.LAUNCHES`), the host
 syncs of one `_steady_step` and per frame of the batch
 (`torch.cuda.set_sync_debug_mode`), and the matmul-class FLOPs per frame
 (`torch.utils.flop_counter`). --mono adds the idle share and syncs of
@@ -63,7 +63,7 @@ STAGE_KEYS = (
     "replenish_total", "rep_detect", "rep_coarse_disp", "rep_stereo_match", "rep_zncc_verify",
     "rep_descriptors", "keyframe_ba",
 )
-KLT_KERNELS = {"klt_pyr": "klt_pyr_kernel", "klt_scale": "klt_scale_kernel"}
+KERNELS = {"klt_pyr": "klt_pyr_kernel", "klt_scale": "klt_scale_kernel", "pose_gn": "pose_gn_kernel"}
 WINDOW_LABEL = "vo_profile_window"
 MONO_FRAMES = 49  # --mono: the first HardSequence frames, as chip_smoke's mono path
 MONO_BATCH = 12  # mono frames per track_batch call: the warm-up's and the profiled one's
@@ -211,20 +211,20 @@ def trace_window(fn, device) -> dict:
     synchronise, inside one record_function range (the window). Returns the
     window's length, the device's busy ms (the union of its kernel and copy
     intervals in the window), the idle share (1 - busy / window), the 10
-    device operations of most total time, the KLT kernels' trace events and
-    `ops/klt_kernels.LAUNCHES` over the same window. Without device events
+    device operations of most total time, the hand-written kernels' trace
+    events and `ops/kernels.LAUNCHES` over the same window. Without device events
     in the trace, busy ms and the idle share are None (not measured)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from .ops import klt_kernels as KK
+    from .ops import kernels as KN
 
     _sync(device)
-    KK.reset_launch_counts()
+    KN.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function(WINDOW_LABEL):
             fn()
             _sync(device)
-    launches = dict(KK.LAUNCHES)
+    launches = dict(KN.LAUNCHES)
     # The raw trace events (the profiler's FunctionEvent tree is not built:
     # a serving batch holds over 10^5 device events).
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -248,8 +248,8 @@ def trace_window(fn, device) -> dict:
         "busy_ms": busy,
         "idle_share": None if busy is None else 1.0 - busy / window_ms,
         "top_ops": [{"name": k[:160], "count": n, "total_ms": ms} for k, (n, ms) in ranked],
-        "klt_trace_events": {k: sum(1 for name, _, _ in spans if v in name) for k, v in KLT_KERNELS.items()},
-        "klt_launches": launches,
+        "kernel_trace_events": {k: sum(1 for name, _, _ in spans if v in name) for k, v in KERNELS.items()},
+        "kernel_launches": launches,
     }
 
 
@@ -257,7 +257,7 @@ def count_syncs(fn, device) -> int:
     """Host syncs that fn() makes, as torch.cuda.set_sync_debug_mode("warn")
     flags them (a `.item()`, `bool()` or `.cpu()` of a device tensor, a
     blocking copy). Not flagged: an explicit torch.cuda.synchronize, and
-    waits inside the KLT kernels' C launchers."""
+    waits inside the hand-written kernels' C launchers."""
     prev = torch.cuda.get_sync_debug_mode()
     _sync(device)
     torch.cuda.set_sync_debug_mode("warn")
@@ -411,8 +411,8 @@ def flop_record(flops: int, steady_flops: int, batch: int, dev_ms) -> dict:
         "peak_f32_flops_per_s": PEAK_FP32_FLOPS,
         "mfu_f32": achieved / PEAK_FP32_FLOPS if achieved is not None else None,
         "note": "torch.utils.flop_counter.FlopCounterMode over one track_stereo_batch call: matmul-class "
-                "ops only (mm, bmm, addmm, matmul, convolutions); elementwise, gather and the KLT kernels' "
-                "work are not counted. VO is gather- and launch-bound, so a low share of the float32 peak "
+                "ops only (mm, bmm, addmm, matmul, convolutions); elementwise, gather and the hand-written "
+                "kernels' work are not counted. VO is gather- and launch-bound, so a low share of the float32 peak "
                 "(H100 SXM, outside the tensor cores, 700 W) is structural. Achieved = per-frame FLOPs over "
                 "the serving path's device ms per frame.",
     }
