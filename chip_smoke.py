@@ -9,8 +9,8 @@ Phases (each prints its lines; any failure raises and exits non-zero before
 the final line):
   1. environment: torch / CUDA versions, the card's name and power limit;
      every world below is rendered in one process pool;
-  2. build: compiles csrc/*.cu (klt.cu, pose_gn.cu) in one nvcc call for
-     sm_90a into one library under build/kernels/;
+  2. build: compiles csrc/*.cu (klt.cu, pose_gn.cu, ba_gn.cu) in one nvcc
+     call for sm_90a into one library under build/kernels/;
   3. kernels: `klt_pyr` one level at a time (2-D and epi1d, all three
      pyramid level sizes), as the fused forward climb (N = 1024), as the
      bidirectional epi1d climb (N = 512) and as mono's 2-D bidirectional
@@ -26,7 +26,13 @@ the final line):
      frame, a steady mono frame, two PnP polishes of a recovery: the first
      and the one over the most valid points), `pose_gn` on each against the
      plain versions (`*_ref`), two launches bit-identical, and timed the
-     same way, its bound from the plain versions' work counts;
+     same way, its bound from the plain versions' work counts; and once
+     phases 4 and 8 have recorded a stereo and a mono keyframe step's window
+     BA problem, the `ba_*` kernels on each and on dryrun_multichip's
+     against `ba_solve_ref`, two solves bit-identical, launches per solve,
+     device ms per solve (its launches replayed) and per kernel
+     (torch.profiler), wrapper host us, the plain version's ms, and the
+     bound from the problem's masks;
   4. per-frame path: `StereoVO(cfg, device="cuda")` at the bench.py
      configuration over 1 + 18 frames of the bench corridor at 0.25 m/frame
      through `track_stereo_images`; times steady and keyframe steps and
@@ -75,7 +81,8 @@ the final line):
      `make_distributed_ba` at __graft_entry__.dryrun_multichip's problem
      (K = 9, M = 4096, 3 iterations, stereo rows) against the single-device
      solve, timed by CUDA events, with its all-reduces per solve counted
-     (iterations + 2);
+     (iterations + 2) and its ba_* launches (ba_solve twice per iteration,
+     around the all-reduce);
  12. the accuracy leg (`visual_odometry_ros_tpu_torch.eval_accuracy`):
      `run_stereo` on the card with the kernel leg over phase 8's 49 frames
      as float32 stereo pairs, ATE against the JAX package's CPU run of
@@ -89,9 +96,12 @@ the final line):
      12's), `bench_scaling`'s one-rank NCCL world (all-reduces and their
      bytes per solve) and `h2d_overlap_probe`'s two upload routes.
 Every path is driven with the kernel launch counts set to 0 just before it
-and read just after; every kernel must have run on every path, and pose_gn
-once for each call of the four public pose functions (counted by a wrapper
-around them over phases 4-13). The last two lines are the kernel table (launches of
+and read just after; every KLT and pose kernel must have run on every path,
+pose_gn once for each call of the four public pose functions and the ba_*
+kernels 4 iters + 2 times (ba_terms iters + 2, the others iters) for each
+single-device window BA solve (both counted by wrappers around them over
+phases 4-13), checked per keyframe step on the per-frame and mono paths.
+The last two lines are the kernel table (launches of
 the serving, mono (with the blackout run), image-level KLT, CLI,
 accuracy-leg and A/B kernel-leg paths) and {"ok": true,
 "device": ...}. This script imports no JAX.
@@ -139,6 +149,20 @@ POSE_TOL_T = 1e-4
 POSE_TOL_ERR = 1e-3
 POSE_LOG_MAX = 64  # pose calls a phase records
 MONO_POSE_CALL = 10  # the recorded mono call held (a steady frame of phase 8's first run)
+
+# The ba_* kernels against ba_solve_ref on the window BA problems that
+# phases 4 and 8 recorded (a stereo and a mono keyframe step) and on
+# dryrun_multichip's. Only the order of the float32 sums differs (normal
+# equations, Schur complement, Cholesky), which the Schur complement
+# amplifies mildly and which can move the max |dx| < 1e-5 stop by an
+# iteration: tests/test_torch_ops.py's BA tolerances, T_cw to 2e-4, Xw to
+# 2e-3 relative and absolute (a landmark seen from few keyframes is weakly
+# constrained along its ray), mean error to 1e-3 relative (the starting
+# error, one sum over the same terms, to 1e-5); killed and n_obs equal;
+# iterations equal or one apart.
+BA_KTOL = {"T_cw": 2e-4, "Xw": 2e-3, "err": 1e-3, "err0": 1e-5}
+BA_LOG_MAX = 8  # BA solves a phase records
+BA_KERNELS = ("ba_terms", "ba_solve", "ba_backsub", "ba_apply")
 
 # Per-frame path: the bench corridor at 0.25 m/frame, 1 + 24 frames, of which
 # the last N_TIMED run with timed=True. ATE bound: the JAX package's CPU run
@@ -323,6 +347,46 @@ OPS = {
     "pose_point_eval_mono": 43,
     "pose_point_eval_stereo": 83,
     "pose_point_gate": 154,
+    # ba_*, per unit of one GN iteration's work that the recorded problem's
+    # masks give (a masked row is no work: the plain version multiplies it by
+    # a zero weight; a fixed or empty slot's pose rows are no work either:
+    # solve_reduced gives its unknowns an identity row and dx = 0 there).
+    # Left rows of a (landmark, keyframe) pair: the point into the camera 18,
+    # inverse depth 3, normalised point 2, residuals 6, the pose rows Q 18,
+    # the point rows Rj 20, |r| 6, Huber and the depth gate 5 (78), then per
+    # row its point part, the weighted Rj 3 and its products into C 18 and b
+    # 6 (27), and on an optimisable slot its pose part, the weighted Q 6 and
+    # the products into A 72, a 12, B 36 (126). Right rows: the point in the
+    # right camera 18, inverse depth 3, normalised 2, residuals 6, dpiR 20,
+    # Xc x dpiR (Q's rotation half) 18, Rj 30, |r| 6, Huber and gate 5 (108),
+    # then per row as the left. On a fixed slot the pair needs no Q (18 less).
+    # Per observed pair: its C and b into the landmark's sums 12; on an
+    # optimisable slot also BCinv 90 and sb 36. S_off over the unordered
+    # pairs of optimisable slots a landmark is seen in (it is symmetric):
+    # j < k a 6x6 block, 36 dot products of 3 (216); j = k its 21 distinct
+    # entries (126). Per active landmark damping 6, the 3x3 inverse 45, the
+    # divergence test 6. Per iteration the reduced system of the n = 6 x
+    # (optimisable slots) unknowns that carry work: the Cholesky n^3 / 3,
+    # the equilibration n^2 (its symmetric half, two products an entry), the
+    # two triangular solves 2 n^2, the guard and se3_exp of those poses
+    # ~150 each (ba_solve). ba_backsub: B^T dx per pair on an optimisable
+    # slot 36, dy per active landmark 18; ba_apply: Xr += dy per active
+    # landmark 3. The errors before and after (ba_terms' error launches):
+    # per observed left pair 33.
+    "ba_left_pair": 78 + 2 * (27 + 126),
+    "ba_left_pair_fixed": 78 - 18 + 2 * 27,
+    "ba_right_pair": 108 + 2 * (27 + 126),
+    "ba_right_pair_fixed": 108 - 18 + 2 * 27,
+    "ba_pair": 12,
+    "ba_pair_opt": 90 + 36,
+    "ba_pair_pair": 216,
+    "ba_pair_diag": 126,
+    "ba_landmark": 57,
+    "ba_err_pair": 33,
+    "ba_pose": 150,
+    "ba_backsub_pair": 36,
+    "ba_backsub_landmark": 18,
+    "ba_apply_landmark": 3,
 }
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -491,11 +555,13 @@ def recorded_launches(fn):
     """Run fn() once. Returns the C launcher calls it made, [(name, c_fn,
     argv)], and the launch helpers' inputs and outputs: the tensors behind
     argv's pointers, which the caller holds while it replays argv."""
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
     from visual_odometry_ros_tpu_torch.ops import klt_kernels as KK
     from visual_odometry_ros_tpu_torch.ops import pose_gn as PG
 
     calls, tensors = [], []
-    helpers = {KK: ("_pyr_launch", "_scale_launch"), PG: ("_pg_launch",)}
+    # (ops/ba.py's launch arguments hold the tensors they point at.)
+    helpers = {KK: ("_pyr_launch", "_scale_launch"), PG: ("_pg_launch",), BA: ()}
     orig = {(m, k): getattr(m, k) for m, names in helpers.items() for k in ("_launch", *names)}
 
     def rec(launch):
@@ -697,16 +763,30 @@ def compare(name, p_k, ok_k, p_r, ok_r):
 
 
 def launched(phase: str) -> dict:
-    """The kernel launch counts since the last `reset_counts`; every kernel
-    must have run, and pose_gn once for each call of a public pose function."""
+    """The kernel launch counts since the last `reset_counts`; every KLT and
+    pose kernel must have run, pose_gn once for each call of a public pose
+    function, and the ba_* kernels exactly as the single-device BA solves on
+    the card enqueue them (`ba_launches_ok`), at least one of them on a path
+    whose keyframe steps ran."""
     from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
     counts = dict(KN.LAUNCHES)
     for name in counts:
-        assert counts[name] > 0, f"{phase}: the path never launched {name}"
+        assert name in BA_KERNELS or counts[name] > 0, f"{phase}: the path never launched {name}"
     assert counts["pose_gn"] == POSE_CALLS["pose_calls"], (
         f"{phase}: {counts['pose_gn']} pose_gn launches for {POSE_CALLS['pose_calls']} pose solves")
+    assert ba_launches_ok({**counts, **BA_CALLS}), f"{phase}: ba launches {counts} for the solves {BA_CALLS}"
     return counts
+
+
+def ba_launches_ok(d: dict) -> bool:
+    """The ba_* launches of `d` (launch counts and BA_CALLS, or a difference
+    of two such) are what its single-device solves enqueue: per solve of
+    `iters` iterations, ba_terms iters + 2 times (the errors before and
+    after), the three others iters times."""
+    want = {"ba_terms": d["ba_iters"] + 2 * d["ba_solves"], "ba_solve": d["ba_iters"], "ba_backsub": d["ba_iters"],
+            "ba_apply": d["ba_iters"]}
+    return all(d[k] == v for k, v in want.items())
 
 
 # Calls of the four public pose functions on CUDA tensors while `pose_calls`
@@ -714,22 +794,27 @@ def launched(phase: str) -> dict:
 # frame; the others are the PnP polishes of a recovery).
 POSE_FNS = ("pose_only_gn_stereo_robust", "pose_only_gn_mono_robust", "pose_only_gn_mono", "pose_only_gn_stereo")
 POSE_CALLS = {"pose_calls": 0, "pose_robust": 0}
+# Single-device window BA solves on CUDA tensors while `pose_calls` runs
+# (ops/ba.ba_solve_impl without a group), and the iterations they enqueue.
+BA_CALLS = {"ba_solves": 0, "ba_iters": 0}
 
 
 def reset_counts() -> None:
-    """Sets the kernel launch counts and POSE_CALLS to 0."""
+    """Sets the kernel launch counts, POSE_CALLS and BA_CALLS to 0."""
     from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
     KN.reset_launch_counts()
-    for k in POSE_CALLS:
-        POSE_CALLS[k] = 0
+    for d in (POSE_CALLS, BA_CALLS):
+        for k in d:
+            d[k] = 0
 
 
 def counts() -> dict:
-    """The kernel launch counts and POSE_CALLS, for per-frame differences."""
+    """The kernel launch counts, POSE_CALLS and BA_CALLS, for per-frame
+    differences."""
     from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
-    return dict(KN.LAUNCHES, **POSE_CALLS)
+    return dict(KN.LAUNCHES, **POSE_CALLS, **BA_CALLS)
 
 
 def diff(before: dict) -> dict:
@@ -740,15 +825,34 @@ def diff(before: dict) -> dict:
 @contextlib.contextmanager
 def pose_calls():
     """While the block runs, POSE_CALLS counts the calls of the four public
-    pose functions on CUDA tensors. Yields `record`: `with record() as log`
+    pose functions on CUDA tensors and BA_CALLS the single-device BA solves
+    (ops/ba.ba_solve_impl) on them. Yields `record`: `with record() as log`
     keeps the block's calls in log, {name: [(args, kwargs)]}, the first
-    POSE_LOG_MAX of each, tensors cloned."""
+    POSE_LOG_MAX of each pose function and BA_LOG_MAX BA solves
+    ("ba_solve_impl"), tensors cloned."""
     import torch
 
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
     from visual_odometry_ros_tpu_torch.ops import pose_gn as PG
 
     orig = {n: getattr(PG, n) for n in POSE_FNS}
+    orig_ba = BA.ba_solve_impl
     sink = [None]
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return type(x)(*map(clone, x)) if isinstance(x, BA.BAProblem) else x
+
+    def counted_ba(*a, **kw):
+        params = kw.get("params", a[6] if len(a) > 6 else BA.BAParams())
+        if a[0].T_cw.is_cuda and kw.get("group", a[7] if len(a) > 7 else None) is None:
+            BA_CALLS["ba_solves"] += 1
+            BA_CALLS["ba_iters"] += params.iters
+            log = sink[0]
+            if log is not None and len(log["ba_solve_impl"]) < BA_LOG_MAX:
+                log["ba_solve_impl"].append((tuple(map(clone, a)), dict(kw)))
+        return orig_ba(*a, **kw)
 
     def counted(name):
         def run(*a, **kw):
@@ -763,7 +867,7 @@ def pose_calls():
 
     @contextlib.contextmanager
     def record():
-        sink[0] = {n: [] for n in POSE_FNS}
+        sink[0] = {n: [] for n in (*POSE_FNS, "ba_solve_impl")}
         try:
             yield sink[0]
         finally:
@@ -771,11 +875,13 @@ def pose_calls():
 
     for n in POSE_FNS:
         setattr(PG, n, counted(n))
+    BA.ba_solve_impl = counted_ba
     try:
         yield record
     finally:
         for n, f in orig.items():
             setattr(PG, n, f)
+        BA.ba_solve_impl = orig_ba
 
 
 def pose_bytes(stereo: bool, robust: bool, n: int) -> int:
@@ -858,6 +964,260 @@ def pose_gn_checks(cases: dict, card: str) -> dict:
     return rows
 
 
+def ba_work(problem, params, iters: int) -> dict:
+    """{kernel: (operations, bytes)} that a solve of `iters` iterations
+    needs on `problem`, from its masks as the solve sees them (OPS' ba_*
+    entries; a kernel's bytes are the inputs it must read and the outputs it
+    must write once per solve: ba_terms the observations, points and poses,
+    ba_solve the poses, ba_backsub dy, ba_apply the points in and out)."""
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+
+    an = BA._anchor(problem, params)
+    opt = an.opt_mask[None, :]
+    n_left, n_right = int((an.mask & opt).sum()), int((an.mask_r & opt).sum())
+    n_left_fix, n_right_fix = int((an.mask & ~opt).sum()), int((an.mask_r & ~opt).sum())
+    seen = an.mask | an.mask_r
+    per_lm = (seen & opt).sum(dim=1)  # optimisable slots each landmark is seen in
+    pairs, pairs_opt = int(seen.sum()), int(per_lm.sum())
+    pair_pairs = int((per_lm * (per_lm - 1) // 2).sum())  # j < k
+    lms = int(an.lm_active.sum())
+    M = problem.Xw.shape[0]
+    K, K_opt = problem.T_cw.shape[0], int(an.opt_mask.sum())
+    n = 6 * K_opt
+    ops = {
+        "ba_terms": iters * (OPS["ba_left_pair"] * n_left + OPS["ba_right_pair"] * n_right
+                             + OPS["ba_left_pair_fixed"] * n_left_fix + OPS["ba_right_pair_fixed"] * n_right_fix
+                             + OPS["ba_pair"] * pairs + OPS["ba_pair_opt"] * pairs_opt
+                             + OPS["ba_pair_pair"] * pair_pairs + OPS["ba_pair_diag"] * pairs_opt
+                             + OPS["ba_landmark"] * lms)
+        + 2 * OPS["ba_err_pair"] * int(an.mask.sum()),
+        "ba_solve": iters * (n ** 3 // 3 + n * n + 2 * n * n + OPS["ba_pose"] * K_opt),
+        "ba_backsub": iters * (OPS["ba_backsub_pair"] * pairs_opt + OPS["ba_backsub_landmark"] * lms),
+        "ba_apply": iters * OPS["ba_apply_landmark"] * lms,
+    }
+    nbytes = {
+        "ba_terms": 2 * M * K + 8 * int(an.mask.sum() + an.mask_r.sum()) + 12 * M + M + 64 * K + K,
+        "ba_solve": 2 * 64 * K,
+        "ba_backsub": 12 * M,
+        "ba_apply": 24 * M + 64 * K,
+    }
+    return {k: (ops[k], nbytes[k]) for k in BA_KERNELS}
+
+
+def kernel_split_ms(calls, reps=5) -> dict:
+    """Device ms per replay of `calls` (C launcher calls) spent in each ba_*
+    kernel: torch.profiler's kernel events over `reps` replays, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for _, fn, argv in calls:
+                fn(*argv)
+        torch.cuda.synchronize()
+    split = dict.fromkeys(BA_KERNELS, 0.0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in BA_KERNELS:
+            if f"{k}_kernel" in e.name():
+                split[k] += (e.end_ns() - e.start_ns()) * 1e-6 / reps
+    return split
+
+
+def plain_split_ms(problem, fx, fy, cx, cy, T_rl, params, iters: int) -> dict:
+    """The plain version's time (CUDA events) for each ba_* kernel's share of
+    a solve of `iters` iterations at the start state of `problem`: per
+    iteration build_observation_terms, assemble_normal_blocks and
+    schur_reduce with the divergence flags (ba_terms, which also takes the
+    two error sums), solve_reduced (ba_solve), back_substitute (ba_backsub),
+    the guard and the update (ba_apply)."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+    from visual_odometry_ros_tpu_torch.utils import geometry as geo
+
+    an = BA._anchor(problem, params)
+    mask, mask_r, T_cr, Xr = an.mask, an.mask_r, an.T_cr, an.Xr
+    obs = (problem.pts, mask, problem.pts_r, mask_r, fx, fy, cx, cy, T_rl)
+
+    def terms():
+        w, r, Q, Rj = BA.build_observation_terms(T_cr, Xr, *obs, params.huber_delta)
+        A, a, C, b, B = BA.assemble_normal_blocks(w, r, Q, Rj)
+        S, s, Cinv, _ = BA.schur_reduce(A, a, C, b, B, params.lam)
+        bad = an.lm_active & ~(torch.isfinite(Cinv).all(dim=(1, 2)) & torch.isfinite(b).all(dim=1)
+                               & torch.isfinite(B).all(dim=(1, 2, 3)))
+        return S, s, Cinv, b, B, torch.sum(bad)
+
+    def err():
+        _, r_, _, _ = BA.build_observation_terms(T_cr, Xr, *obs, 1e9)
+        return torch.sum(torch.sqrt(torch.sum(r_[..., :2] ** 2, dim=-1)) * mask), torch.sum(mask)
+
+    S, s, Cinv, b, B, n_bad = terms()
+    dx = BA.solve_reduced(S, s, an.opt_mask)
+    dy = torch.where(an.lm_active[:, None], BA.back_substitute(Cinv, b, B, dx), 0.0)
+
+    def apply():
+        bad = (~torch.all(torch.isfinite(dx)) | (n_bad > 0) | ~torch.all(torch.isfinite(dy))
+               | (torch.amax(torch.linalg.norm(dx[:, :3], dim=-1)) > params.max_trans_update))
+        d = torch.where(bad, 0.0, dx)
+        T = torch.where(an.opt_mask[:, None, None], geo.add_front_se3(T_cr, d), T_cr)
+        return T, Xr + torch.where(bad, 0.0, dy), torch.amax(torch.abs(d)) < 1e-5
+
+    def ms(fn):
+        return cuda_ms(fn, reps=5, warmup=1)
+
+    return {"ba_terms": iters * ms(terms) + 2 * ms(err),
+            "ba_solve": iters * ms(lambda: BA.solve_reduced(S, s, an.opt_mask)),
+            "ba_backsub": iters * ms(lambda: BA.back_substitute(Cinv, b, B, dx)),
+            "ba_apply": iters * ms(apply)}
+
+
+def ba_host_split(solve, reps=20) -> dict:
+    """Host us per call of `solve` (a single-device ba_solve_impl on CUDA
+    tensors) in each part of the kernel route: the input checks (`_check`),
+    the anchored start (`_anchor`), the 4 iters + 2 ctypes launches
+    (`kernels.launch`), the write-back (`_write_back`), and the rest (the
+    build lookup, scratch from torch.empty, `_Args`, the error sums) as the
+    total less these; perf_counter around each part over `reps` calls, no
+    synchronise inside. The timers add ~0.3 us a part."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+
+    parts = {"check": "_check", "anchor": "_anchor", "launches": "_launch", "write_back": "_write_back"}
+    acc = dict.fromkeys(parts, 0.0)
+    orig = {k: getattr(BA, v) for k, v in parts.items()}
+
+    def timed(key):
+        fn = orig[key]
+
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t
+        return run
+
+    for k, v in parts.items():
+        setattr(BA, v, timed(k))
+    try:
+        solve()
+        torch.cuda.synchronize()
+        acc.update(dict.fromkeys(parts, 0.0))
+        t = time.perf_counter()
+        for _ in range(reps):
+            solve()
+        total = time.perf_counter() - t
+        torch.cuda.synchronize()
+    finally:
+        for k, v in parts.items():
+            setattr(BA, v, orig[k])
+    out = {k: v / reps * 1e6 for k, v in acc.items()}
+    out["rest"] = total / reps * 1e6 - sum(out.values())
+    out["total"] = total / reps * 1e6
+    return out
+
+
+def ba_checks(cases: dict, card: str) -> dict:
+    """Phase 3, ba_*, on the recorded window BA problems `cases` ({name:
+    (args, kwargs) of ops/ba.ba_solve_impl}): launches per solve as
+    `launches_per_solve(iters)` says, two solves bit-identical, the kernels
+    against ba_solve_ref to BA_KTOL, both against a float64 run of
+    ba_solve_ref on the CPU (a witness, not a gate); then device ms per
+    solve (the solve's C launcher calls replayed 20 times back to back
+    between CUDA events) and its split by kernel (torch.profiler), the
+    wrapper's host us per solve and per part (`ba_host_split`), the plain
+    version's ms per solve and per kernel share, and each kernel's bound
+    from the problem's masks. Returns {name: row}."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
+
+    def cpu64(a):
+        if isinstance(a, BA.BAProblem):
+            return BA.BAProblem(*map(cpu64, a))
+        if isinstance(a, torch.Tensor):
+            return (a.double() if a.is_floating_point() else a).cpu()
+        return a
+
+    rows = {}
+    for name, (args, kwargs) in cases.items():
+        kwargs = {k: v for k, v in kwargs.items() if k != "info"}
+        problem, (fx, fy, cx, cy), T_rl = args[0], args[1:5], args[5]
+        params = args[6] if len(args) > 6 else kwargs.get("params", BA.BAParams())
+
+        def solve(fn, info=None):
+            return fn(*args, **kwargs, **({} if info is None else {"info": info}))
+
+        info_k, info_r = {}, {}
+        KN.reset_launch_counts()
+        rk, rk2 = solve(BA.ba_solve_impl, info_k), solve(BA.ba_solve_impl)
+        launches = {k: KN.LAUNCHES[k] for k in BA_KERNELS}
+        rr = solve(BA.ba_solve_ref, info_r)
+        torch.cuda.synchronize()
+        assert ba_launches_ok({**launches, "ba_solves": 2, "ba_iters": 2 * params.iters}), (name, launches)
+        same = all(torch.equal(a, b) for a, b in zip(rk, rk2))
+        d_T = float((rk.T_cw - rr.T_cw).abs().max())
+        x_excess = float(((rk.Xw - rr.Xw).abs() - BA_KTOL["Xw"] * (1.0 + rr.Xw.abs())).max())
+        r_err = abs(float(rk.mean_err_px) - float(rr.mean_err_px)) / abs(float(rr.mean_err_px))
+        r_err0 = abs(float(rk.mean_err0_px) - float(rr.mean_err0_px)) / abs(float(rr.mean_err0_px))
+        K, M = problem.T_cw.shape[0], problem.Xw.shape[0]
+        row = {"case": name, "K": K, "M": M, "kf_valid": int(problem.kf_valid.sum()),
+               "lm_valid": int(problem.lm_valid.sum()), "obs_left": int((problem.mask & problem.kf_valid).sum()),
+               "iters_kernel_plain": [info_k["iters"], info_r["iters"]], "max_abs_err_T_cw": d_T,
+               "max_abs_err_Xw_m": float((rk.Xw - rr.Xw).abs().max()), "Xw_excess_over_tol_m": x_excess,
+               "mean_err_px": [float(rk.mean_err_px), float(rr.mean_err_px)], "mean_err_rel": r_err,
+               "mean_err0_rel": r_err0, "killed": [int(rk.killed.sum()), int(rr.killed.sum())],
+               "n_obs": [int(rk.n_obs), int(rr.n_obs)], "launches_per_solve": sum(launches.values()) // 2,
+               "bit_identical_relaunch": same}
+        print(json.dumps(row))
+        assert same, f"{name}: two solves on the same inputs differ"
+        assert d_T <= BA_KTOL["T_cw"] and x_excess <= 0.0, row
+        assert r_err <= BA_KTOL["err"] and r_err0 <= BA_KTOL["err0"], row
+        assert torch.equal(rk.killed, rr.killed) and row["n_obs"][0] == row["n_obs"][1], row
+        assert abs(info_k["iters"] - info_r["iters"]) <= 1, row
+
+        # A witness for the float32 spread: the plain version in float64 on
+        # the CPU (the same formulas, rounded 2^29 times finer).
+        T64 = BA.ba_solve_ref(*map(cpu64, args), **kwargs).T_cw
+        row["max_abs_err_T_cw_vs_float64"] = {
+            "kernels": float((rk.T_cw.cpu().double() - T64).abs().max()),
+            "plain": float((rr.T_cw.cpu().double() - T64).abs().max())}
+        print(json.dumps({"case": name, "max_abs_err_T_cw_vs_float64": row["max_abs_err_T_cw_vs_float64"]}))
+
+        calls, tensors = recorded_launches(lambda: solve(BA.ba_solve_impl))
+        assert [c[0] for c in calls] == ["ba_terms"] + list(BA_KERNELS) * params.iters + ["ba_terms"], name
+        work = ba_work(problem, params, info_k["iters"])
+        bounds = {}
+        for k, (ops, nb) in work.items():
+            t_ops, t_bytes = ops / PEAK_FP32, nb / PEAK_BYTES
+            bounds[k] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+        row.update(ms=device_ms([(c[1], c[2]) for c in calls], reps=20), split_ms=kernel_split_ms(calls),
+                   plain_ms=cuda_ms(lambda: solve(BA.ba_solve_ref), reps=3, warmup=1),
+                   plain_split_ms=plain_split_ms(problem, fx, fy, cx, cy, T_rl, params, info_k["iters"]),
+                   host_us=host_us(lambda: solve(BA.ba_solve_impl), reps=20),
+                   host_split_us=ba_host_split(lambda: solve(BA.ba_solve_impl)),
+                   bound_ms={k: b[0] for k, b in bounds.items()}, bound_by={k: b[1] for k, b in bounds.items()})
+        del tensors
+        b_all = sum(row["bound_ms"].values())
+        row["bound_share"] = b_all / row["ms"]
+        rows[name] = row
+        print(f"time ba_* {name} (K={K}, M={M}, {info_k['iters']} of {params.iters} iterations, "
+              f"{row['launches_per_solve']} launches): device {row['ms']:.4f} ms per solve (20 back-to-back "
+              f"solves), by kernel " + ", ".join(f"{k} {v:.4f}" for k, v in row["split_ms"].items())
+              + f" ms; bound {b_all:.6f} ms (" + ", ".join(f"{k} {row['bound_ms'][k]:.6f} by {row['bound_by'][k]}"
+                                                         for k in BA_KERNELS)
+              + f"); plain {row['plain_ms']:.3f} ms per solve (by share " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in row["plain_split_ms"].items())
+              + f"); wrapper host {row['host_us']:.1f} us per solve (" + ", ".join(
+                  f"{k} {v:.1f}" for k, v in row["host_split_us"].items()) + f" us) on {card}")
+    return rows
+
+
 def sync(device):
     import torch
 
@@ -919,10 +1279,12 @@ def per_frame_path(frames, device, card):
     # A tracked frame: one klt_pyr launch each for the track climb and the
     # stereo pass, one more for each replenish it ran; one klt_scale; one
     # pose solve, the robust one, in one pose_gn launch.
-    for n in tracked:
+    # A keyframe: one BA solve, its launches as launches_per_solve says.
+    for n, s in zip(tracked, vo.stats_log[1:]):
         assert not n["recovered"], f"recovery fired at {STEP_MAIN} m/frame: {n}"
         assert n["klt_scale"] == 1 and n["klt_pyr"] == 2 + n["replenish"], f"KLT launches of a frame: {n}"
         assert n["pose_gn"] == n["pose_calls"] == n["pose_robust"] == 1, f"pose_gn launches of a frame: {n}"
+        assert n["ba_solves"] == int(s["keyframe"]) and ba_launches_ok(n), f"ba launches of a frame: {n}"
     steady = [ms for ms, s in zip(frame_ms[3:], vo.stats_log[3:]) if not s["keyframe"]]
     print(f"time steady frame: median {statistics.median(steady):.2f} ms over {len(steady)} frames; "
           f"keyframe step: median {statistics.median(kf_ms[1:] or kf_ms):.2f} ms over "
@@ -1108,16 +1470,21 @@ def _check_mono_launches(run) -> None:
     """KLT launches: none on the first frame, one klt_pyr on an init frame,
     one klt_pyr and one klt_scale on a steady frame; a fallback, recovery
     or keyframe step adds none. Pose: one robust solve on a steady frame,
-    and the PnP polishes of a recovery; one pose_gn launch for each solve."""
+    and the PnP polishes of a recovery; one pose_gn launch for each solve.
+    BA: one solve on a steady keyframe, its launches as launches_per_solve
+    says."""
     want = {"first": (0, 0), "init": (1, 0), "init_reanchor": (1, 0), "bootstrapped": (1, 0), "steady": (1, 1)}
     for f in run["per_frame"]:
         assert (f["klt_pyr"], f["klt_scale"]) == want[f["phase"]], f"mono KLT launches of a frame: {f}"
         assert f["pose_gn"] == f["pose_calls"] and f["pose_robust"] == (f["phase"] == "steady"), (
             f"mono pose_gn launches of a frame: {f}")
+        assert f["ba_solves"] == int(f["phase"] == "steady" and f["keyframe"]) and ba_launches_ok(f), (
+            f"mono ba launches of a frame: {f}")
     for b in run["batches"]:
         assert b["klt_pyr"] == b["klt_scale"] == b["frames"], f"mono KLT launches of a batch: {b}"
         assert b["pose_gn"] == b["pose_calls"] and b["pose_robust"] == b["frames"], (
             f"mono pose_gn launches of a batch: {b}")
+        assert ba_launches_ok(b), f"mono ba launches of a batch: {b}"
 
 
 def mono_path(frames, device, card) -> dict:
@@ -1368,7 +1735,7 @@ def image_api_path(sites) -> tuple:
         KN.reset_launch_counts()
         p_k, ok_k = site["call"]()
         got = dict(KN.LAUNCHES)
-        assert got == {"klt_pyr": 1, "klt_scale": 0, "pose_gn": 0}, f"{name}: launches {got}, expected one klt_pyr"
+        assert got == {**dict.fromkeys(got, 0), "klt_pyr": 1}, f"{name}: launches {got}, expected one klt_pyr"
         for k in total:
             total[k] += got[k]
         with plain_kernels():
@@ -1573,6 +1940,7 @@ def dist_ba_path(card) -> dict:
     import torch.distributed as dist
 
     from visual_odometry_ros_tpu_torch.ops import ba as BA
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
     from visual_odometry_ros_tpu_torch.parallel import dist_ba
     from visual_odometry_ros_tpu_torch.parallel import multihost as MH
 
@@ -1591,8 +1959,10 @@ def dist_ba_path(card) -> dict:
         full = BA.BAProblem(*(torch.as_tensor(a, device=dev) for a in prob_np))
         info_d, info_s = {}, {}
         BA.reset_collective_counts()
+        KN.reset_launch_counts()
         res = solve(local, fx, fy, cx, cy, T_rl, info_d)
         all_reduces = BA.COLLECTIVES["all_reduce"]
+        group_launches = {k: KN.LAUNCHES[k] for k in BA_KERNELS}
         ref = BA.ba_solve_impl(full, fx, fy, cx, cy, T_rl, params, info=info_s)
         row = {
             "problem": "dryrun_multichip", "K": int(full.T_cw.shape[0]), "M": int(full.Xw.shape[0]),
@@ -1601,7 +1971,7 @@ def dist_ba_path(card) -> dict:
             "d_err_px": abs(float(res.mean_err_px) - float(ref.mean_err_px)),
             "mean_err_px": float(res.mean_err_px), "mean_err0_px": float(res.mean_err0_px),
             "n_obs": [int(res.n_obs), int(ref.n_obs)], "iters": [info_d["iters"], info_s["iters"]],
-            "all_reduces_per_solve": all_reduces,
+            "all_reduces_per_solve": all_reduces, "ba_launches_per_solve": group_launches,
             "ms_per_solve": cuda_ms(lambda: solve(local, fx, fy, cx, cy, T_rl), reps=10, warmup=2),
             "single_ms_per_solve": cuda_ms(lambda: BA.ba_solve_impl(full, fx, fy, cx, cy, T_rl, params),
                                            reps=10, warmup=2),
@@ -1620,6 +1990,10 @@ def dist_ba_path(card) -> dict:
     assert row["n_obs"][0] == row["n_obs"][1] and row["iters"][0] == row["iters"][1], row
     # One all-reduce per GN iteration, plus the error sums before and after.
     assert all_reduces == info_d["iters"] + 2, row
+    # The group solve on the ba_* kernels: per iteration run ba_solve twice
+    # (the partials' sum, then the solve, around the all-reduce).
+    n = info_d["iters"]
+    assert group_launches == {"ba_terms": n + 2, "ba_solve": 2 * n, "ba_backsub": n, "ba_apply": n}, row
     assert np.isfinite(row["mean_err_px"]), row
     return row
 
@@ -1697,7 +2071,8 @@ def measurement_legs(frames, card, acc_fails: int) -> dict:
                           "window_ms": d["window_ms"], "device_events": d["device_events"],
                           "kernel_trace_events": d["kernel_trace_events"], "kernel_launches": d["kernel_launches"],
                           "host_syncs": part["host_syncs"], "card": card}))
-        assert d["kernel_trace_events"] == d["kernel_launches"] and min(d["kernel_launches"].values()) > 0, (
+        assert d["kernel_trace_events"] == d["kernel_launches"] and min(
+            v for k, v in d["kernel_launches"].items() if k not in BA_KERNELS) > 0, (
             f"{name}: the trace's kernels {d['kernel_trace_events']} are not the launches counted "
             f"{d['kernel_launches']}")
     t_prof = time.perf_counter() - t0
@@ -1898,6 +2273,18 @@ def main() -> int:
             "pnp_polish": ("pose_only_gn_mono", *polishes[0]),
             "pnp_polish_widest": ("pose_only_gn_mono", *widest),
         }, card)
+
+        # 3. (continued) ba_* on the BA problems phases 4 and 8 recorded and
+        # on dryrun_multichip's -------------------------------------------
+        # The last keyframe step of each path: the ring at its fullest.
+        from visual_odometry_ros_tpu_torch.ops import ba as BA
+        from visual_odometry_ros_tpu_torch.parallel import multihost as MH
+
+        prob_np, *intr, T_rl_np = MH.dryrun_problem_np()
+        dryrun = ((BA.BAProblem(*(torch.as_tensor(a, device=dev) for a in prob_np)), *intr,
+                   torch.as_tensor(T_rl_np, device=dev), BA.BAParams(iters=BA_ITERS)), {})
+        ba_rows = ba_checks({"stereo_keyframe": rec4["ba_solve_impl"][-1], "mono_keyframe": rec8["ba_solve_impl"][-1],
+                             "dryrun_multichip": dryrun}, card)
         del rec4, rec6, rec8
 
         # 9. image-level KLT ----------------------------------------------------
@@ -1929,11 +2316,21 @@ def main() -> int:
         "klt_scale": "visual_odometry_ros_tpu/ops/klt_pallas_fp.py:621",
         # Not a Pallas kernel: the device-side lax.while_loop of the pose solve.
         "pose_gn": "visual_odometry_ros_tpu/ops/pose_gn.py:87",
+        # Not Pallas kernels: the device-side lax.while_loop of window BA.
+        **dict.fromkeys(BA_KERNELS, "visual_odometry_ros_tpu/ops/ba.py:417"),
     }
     timing["pose_gn"] = pose_rows["stereo_steady"]
     max_err = {name: max(c["max_dp_px"] for c in cases[name]) for name in cases}
     max_err["pose_gn"] = max(r["max_abs_err_T10"] for r in pose_rows.values())
-    source = {"klt_pyr": "klt.cu", "klt_scale": "klt.cu", "pose_gn": "pose_gn.cu"}
+    source = {"klt_pyr": "klt.cu", "klt_scale": "klt.cu", "pose_gn": "pose_gn.cu", **dict.fromkeys(BA_KERNELS, "ba_gn.cu")}
+    # ba_*: the stereo keyframe step's solve, each kernel's device ms per
+    # solve (its launches summed), the plain version's ms for the same share,
+    # the bound of that share, and the wrapper's host time per solve.
+    kf = ba_rows["stereo_keyframe"]
+    for k in BA_KERNELS:
+        timing[k] = {"ms": kf["split_ms"][k], "plain_ms": kf["plain_split_ms"][k], "bound_ms": kf["bound_ms"][k],
+                     "bound_by": kf["bound_by"][k], "host_us": kf["host_us"]}
+        max_err[k] = max(r["max_abs_err_T_cw"] for r in ba_rows.values())
     table = {"kernels": [
         {
             "name": name, "route": "cuda", "source": f"visual_odometry_ros_tpu_torch/csrc/{source[name]}",
@@ -1942,8 +2339,9 @@ def main() -> int:
             "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
             "library_ms": None, "host_ms": timing[name]["host_us"] * 1e-3,
         }
-        for name in ("klt_pyr", "klt_scale", "pose_gn")
+        for name in ("klt_pyr", "klt_scale", "pose_gn", *BA_KERNELS)
     ]}
+    assert all(r["launches"] > 0 for r in table["kernels"]), table
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

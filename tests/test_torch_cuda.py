@@ -1,4 +1,4 @@
-"""The hand-written kernels (KLT, pose_gn) and the ported pipeline on a CUDA GPU.
+"""The hand-written kernels (KLT, pose_gn, ba_*) and the ported pipeline on a CUDA GPU.
 
 Every test here needs the card (marker `cuda`) and skips without one. The
 file imports no JAX, so it runs on a machine that has only the port's
@@ -247,7 +247,7 @@ def test_one_klt_pyr_launch_per_pyramid_track(dev):
     ):
         KN.reset_launch_counts()
         call()
-        assert KN.LAUNCHES == {"klt_pyr": 1, "klt_scale": 0, "pose_gn": 0}
+        assert KN.LAUNCHES == {**dict.fromkeys(KN.LAUNCHES, 0), "klt_pyr": 1}
 
 
 def plane_cfg():
@@ -444,7 +444,7 @@ def test_klt_pyr_bidir_2d_at_mono_call_sites(dev):
         KN.reset_launch_counts()
         k = KK.track_pyr_bidir(*args, back_levels=1)
         torch.cuda.synchronize()
-        assert KN.LAUNCHES == {"klt_pyr": 1, "klt_scale": 0, "pose_gn": 0}
+        assert KN.LAUNCHES == {**dict.fromkeys(KN.LAUNCHES, 0), "klt_pyr": 1}
         r = KK.track_pyr_bidir_ref(*args, back_levels=1)
         agree(k[0], k[1], r[0], r[1])
         agree(k[3], k[4], r[3], r[4])
@@ -510,7 +510,7 @@ def test_image_level_klt_is_one_launch_and_agrees(dev, name):
     KN.reset_launch_counts()
     p_k, ok_k = getattr(KLT, name)(*args, valid, kp)
     torch.cuda.synchronize()
-    assert KN.LAUNCHES == {"klt_pyr": 1, "klt_scale": 0, "pose_gn": 0}
+    assert KN.LAUNCHES == {**dict.fromkeys(KN.LAUNCHES, 0), "klt_pyr": 1}
     p_r, ok_r = getattr(KLT, name)(*(x.cpu() for x in args), valid.cpu(), kp)
     agree(p_k.cpu(), ok_k.cpu(), p_r, ok_r, min_live=0.5)
 
@@ -573,8 +573,10 @@ def test_one_rank_nccl_ba_matches_single_device(dev, tmp_path):
         params = BA.BAParams(iters=3)
         info_d, info_s = {}, {}
         res = dist_ba.make_distributed_ba(group, params)(local, fx, fy, cx, cy, T_rl, info_d)
+        KN.reset_launch_counts()
         ref = BA.ba_solve_impl(BA.BAProblem(*(torch.as_tensor(a, device=rank_dev) for a in prob)), fx, fy, cx, cy,
                                T_rl, params, info=info_s)
+        assert KN.LAUNCHES["ba_apply"] == params.iters  # the single-device solve runs on the ba_* kernels
     finally:
         dist.destroy_process_group()
     torch.testing.assert_close(res.T_cw, ref.T_cw, atol=2e-4, rtol=0)
@@ -765,7 +767,7 @@ def test_pose_gn_matches_plain_version(dev, kind, case):
     KN.reset_launch_counts()
     rk, ek = kernel()
     torch.cuda.synchronize()
-    assert KN.LAUNCHES == {"klt_pyr": 0, "klt_scale": 0, "pose_gn": 1}
+    assert KN.LAUNCHES == {**dict.fromkeys(KN.LAUNCHES, 0), "pose_gn": 1}
     rr, er = plain()
     assert KN.LAUNCHES["pose_gn"] == 1  # the plain version launches nothing
     assert bool(rk.ok) == bool(rr.ok)
@@ -814,3 +816,114 @@ def test_pose_gn_refuses_what_it_cannot_serve(dev):
         TPG.pose_only_gn_mono(X0, pl, vl.cpu(), fx, fy, cx, cy, T0)
     with pytest.raises(ValueError):  # contiguity
         TPG.pose_only_gn_mono_robust(X0.T.contiguous().T, pl, vl, fx, fy, cx, cy, T0)
+
+
+# ----------------------------------------------------------------------------
+# ba_*: the window BA's GN loop on the card
+# ----------------------------------------------------------------------------
+
+
+def ba_window(dev, seed=3, K=10, M=4096, n_lm=3000, stereo=True):
+    """tests/test_torch_ba_gn.py's window (keyframes 0.6 m apart down a
+    street at KITTI's intrinsics, n_lm live landmarks, 0.3 px noise, right
+    rows where the right camera sees the point unless mono, the optimisable
+    poses and every point perturbed), built with the port's geometry, on
+    `dev`. Returns (BAProblem, intrinsics, T_rl)."""
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+
+    fx, cx, cy, W, H, base = 718.856, 607.1928, 185.2157, 1241, 376, 0.5371657
+    rng = np.random.default_rng(seed)
+    T_cw = np.stack([TG.se3_inverse(TG.se3_exp(torch.tensor(
+        [0.01 * k, 0.002 * k, 0.6 * k, 0.001 * k, 0.004 * k, 0.0005 * k], dtype=torch.float32))).numpy()
+        for k in range(K)])
+    Xw = np.zeros((M, 3), np.float32)
+    Xw[:n_lm] = np.stack([rng.uniform(-12, 12, n_lm), rng.uniform(-3, 2, n_lm), rng.uniform(8, 45, n_lm)], -1)
+    T_rl = np.eye(4, dtype=np.float32)
+    T_rl[0, 3] = -base
+    pts, pts_r = np.zeros((M, K, 2), np.float32), np.zeros((M, K, 2), np.float32)
+    mask, mask_r = np.zeros((M, K), bool), np.zeros((M, K), bool)
+
+    def project(Xc):
+        uv = np.stack([Xc[:, 0] / Xc[:, 2] * fx + cx, Xc[:, 1] / Xc[:, 2] * fx + cy], -1)
+        ok = (Xc[:, 2] > 1.0) & (uv[:, 0] > 2) & (uv[:, 0] < W - 2) & (uv[:, 1] > 2) & (uv[:, 1] < H - 2)
+        return uv + rng.normal(0, 0.3, uv.shape), ok
+
+    for k in range(K):
+        Xc = Xw[:n_lm] @ T_cw[k, :3, :3].T + T_cw[k, :3, 3]
+        pts[:n_lm, k], ok = project(Xc)
+        mask[:n_lm, k] = ok & (rng.uniform(size=n_lm) > 0.1)
+        if stereo:
+            pts_r[:n_lm, k], ok_r = project(Xc + T_rl[:3, 3])
+            mask_r[:n_lm, k] = mask[:n_lm, k] & ok_r
+    pts[~mask], pts_r[~mask_r] = 0.0, 0.0
+    T0 = torch.as_tensor(T_cw)
+    T0[2:] = TG.add_front_se3(T0[2:], torch.as_tensor(rng.normal(0, 0.01, (K - 2, 6)), dtype=torch.float32))
+    X0 = Xw + np.where(np.arange(M)[:, None] < n_lm, rng.normal(0, 0.05, (M, 3)), 0.0).astype(np.float32)
+    prob = BA.BAProblem(*(torch.as_tensor(a).to(dev) for a in (T0.numpy(), X0, pts, mask, pts_r, mask_r,
+                                                                 np.ones(K, bool), np.arange(M) < n_lm)))
+    return prob, (fx, fx, cx, cy), torch.as_tensor(T_rl, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["stereo", "mono"])
+def test_ba_kernels_match_the_plain_version(dev, kind):
+    """ba_solve_impl on CUDA tensors (the ba_* kernels) against ba_solve_ref
+    on the same tensors at the main path's size: K = 10 stereo, K = 8 mono,
+    M = 4096. Only the float32 sums' order differs: tests/test_torch_ops.py's
+    tolerances (T_cw 2e-4, Xw 2e-3 relative and absolute, mean error 1e-3
+    relative), killed and n_obs equal, iterations equal or one apart."""
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+
+    prob, intr, T_rl = ba_window(dev, K=10 if kind == "stereo" else 8, stereo=kind == "stereo")
+    params = BA.BAParams()
+    info_k, info_r = {}, {}
+    KN.reset_launch_counts()
+    got = BA.ba_solve_impl(prob, *intr, T_rl, params, info=info_k)
+    assert {k: KN.LAUNCHES[k] for k in ("ba_terms", "ba_solve", "ba_backsub", "ba_apply")} == {
+        "ba_terms": params.iters + 2, "ba_solve": params.iters, "ba_backsub": params.iters,
+        "ba_apply": params.iters}
+    ref = BA.ba_solve_ref(prob, *intr, T_rl, params, info=info_r)
+    torch.testing.assert_close(got.T_cw, ref.T_cw, atol=2e-4, rtol=0)
+    torch.testing.assert_close(got.Xw, ref.Xw, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(got.mean_err_px, ref.mean_err_px, rtol=1e-3, atol=0)
+    torch.testing.assert_close(got.mean_err0_px, ref.mean_err0_px, rtol=1e-5, atol=0)
+    assert torch.equal(got.killed, ref.killed) and int(got.n_obs) == int(ref.n_obs)
+    assert abs(info_k["iters"] - info_r["iters"]) <= 1 and info_k["iters"] > 1, (info_k, info_r)
+
+
+@pytest.mark.cuda
+def test_ba_kernels_relaunch_is_bit_identical_and_never_syncs(dev):
+    """A single-device solve without `info` makes no host sync and enqueues
+    launches_per_solve(iters) launches; two solves on the same inputs are
+    bit-identical (every cross-block sum runs in block order)."""
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+
+    prob, intr, T_rl = ba_window(dev)
+    params = BA.BAParams(iters=7)
+    BA.ba_solve_impl(prob, *intr, T_rl, params)  # builds and loads the library before the sync check
+    torch.cuda.synchronize()
+    KN.reset_launch_counts()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, b = BA.ba_solve_impl(prob, *intr, T_rl, params), BA.ba_solve_impl(prob, *intr, T_rl, params)
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    assert sum(KN.LAUNCHES[k] for k in ("ba_terms", "ba_solve", "ba_backsub", "ba_apply")) == 2 * BA.launches_per_solve(7)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_ba_kernels_refuse_what_they_cannot_serve(dev):
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+
+    prob, intr, T_rl = ba_window(dev, M=256, n_lm=200)
+    with pytest.raises(TypeError):  # dtype
+        BA.ba_solve_impl(prob._replace(Xw=prob.Xw.double()), *intr, T_rl)
+    with pytest.raises(ValueError):  # shape
+        BA.ba_solve_impl(prob._replace(pts=prob.pts[:, :-1]), *intr, T_rl)
+    with pytest.raises(ValueError):  # mixed devices
+        BA.ba_solve_impl(prob._replace(lm_valid=prob.lm_valid.cpu()), *intr, T_rl)
+    big, intr, T_rl = ba_window(dev, K=17, M=256, n_lm=100)
+    with pytest.raises(ValueError):  # K > MAX_K
+        BA.ba_solve_impl(big, *intr, T_rl)

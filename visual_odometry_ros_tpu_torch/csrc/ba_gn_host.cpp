@@ -1,0 +1,61 @@
+// The `ba_*` kernels' algorithm (ba_gn.cuh) as one host thread, for the CPU
+// tests: the same four launchers and `ba_layout`, under the same names and
+// arguments as ba_gn.cu's (the stream is ignored), each launcher running the
+// launch's blocks one after the other with one thread.
+// tests/test_torch_ba_gn.py builds it with g++ into build/kernels/ and runs
+// ops/ba.py's launch sequence on it.
+//
+//   g++ -std=c++17 -O2 -shared -fPIC -o libba_gn_host.so ba_gn_host.cpp
+
+#include <memory>
+#include <vector>
+
+#include "ba_gn.cuh"
+
+namespace {
+
+struct HostBlock {
+  int tid = 0, nthr = 1, bid = 0, nblk = 1;
+  void sync() {}
+};
+
+template <class F>
+void blocks(int n, F f) {
+  for (int bid = 0; bid < n; ++bid) {
+    HostBlock b;
+    b.bid = bid;
+    b.nblk = n;
+    f(b);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int ba_terms_launch(const ba_gn::Args* a, int it, int mode, void*) {
+  std::vector<float> smem(ba_gn::tile_floats(a->K));
+  blocks(a->n_blocks, [&](HostBlock& b) { ba_gn::terms_block(*a, b, smem.data(), it, mode); });
+  return 0;
+}
+
+int ba_solve_launch(const ba_gn::Args* a, int it, int phase, void*) {
+  auto sh = std::make_unique<ba_gn::SolveShared>();
+  blocks(1, [&](HostBlock& b) { ba_gn::solve_block(*a, b, *sh, it, phase); });
+  return 0;
+}
+
+int ba_backsub_launch(const ba_gn::Args* a, int it, void*) {
+  std::vector<float> smem(ba_gn::tile_floats(a->K));
+  blocks(a->n_blocks, [&](HostBlock& b) { ba_gn::backsub_block(*a, b, smem.data(), it); });
+  return 0;
+}
+
+int ba_apply_launch(const ba_gn::Args* a, int it, void*) {
+  blocks(1, [&](HostBlock& b) { ba_gn::apply_block(*a, b, it); });
+  return 0;
+}
+
+int ba_layout(int K, int* out, int cap) { return ba_gn::layout(K, out, cap); }
+
+}  // extern "C"

@@ -348,9 +348,9 @@ def render_md(out: Path) -> None:
         "from `ACCURACY.json`, unchanged. Kernels: `cuda (kernel leg)` = the hand KLT",
         "kernels on the card; `plain (kernel leg)` = their plain PyTorch versions (CPU);",
         "`plain (jnp leg)` = the port of the JAX jnp leg (plain PyTorch, no KLT kernel);",
-        "`+ pose_gn` = the pose solve ran as the hand `pose_gn` kernel (rows that",
-        "record their kernel launches; on the card both legs run it); `pallas` / `jnp` =",
-        "the JAX legs.",
+        "`+ pose_gn` = the pose solve ran as the hand `pose_gn` kernel, `+ ba_*` = the",
+        "keyframe steps' window BA as the hand `ba_*` kernels (rows that record their",
+        "kernel launches; on the card both legs run them); `pallas` / `jnp` = the JAX legs.",
         "",
         "| row | platform | card | kernels | frames | dist (m) | stereo ATE (m) | stereo ATE %dist "
         "| stereo RPE t (m) | stereo RPE r (deg) | pose fails | recoveries | mono ATE sim3 (m) "
@@ -369,7 +369,8 @@ def render_md(out: Path) -> None:
         lines.append(
             f"| {tag} | {r['platform']} | {r['card'] or 'CPU'} | {r['kernels']} "
             f"({'kernel' if r['klt_leg'] == 'on' else 'jnp'} leg)"
-            f"{' + pose_gn' if r.get('launches', {}).get('pose_gn') else ''} | {r['frames']} "
+            f"{' + pose_gn' if r.get('launches', {}).get('pose_gn') else ''}"
+            f"{' + ba_*' if r.get('launches', {}).get('ba_solve') else ''} | {r['frames']} "
             f"| {_fmt(r['distance_m'], 2)} | {_fmt(s['ate_rmse_m'])} | {_fmt(s['ate_pct_of_dist'], pct=True)} "
             f"| {_fmt(s['rpe_trans_m'])} | {_fmt(s['rpe_rot_deg'])} | {s['n_pose_fail']} | {s['n_recoveries']} "
             f"| {_fmt(m['ate_rmse_sim3_m'])} | {_fmt(m['ate_pct_of_dist'], pct=True)} | {_fmt(s['wall_s'], 1)} "

@@ -8,10 +8,20 @@ float64 anywhere. With a process group (`group=`, the counterpart of the
 reference's `axis_name`), each rank holds a shard of the landmark axis and
 the sums that cross landmarks are all-reduced over the group
 (`parallel/dist_ba.py`).
+
+The reference runs its GN loop as a `lax.while_loop` on the device. Here,
+on CUDA tensors, the loop is the hand-written kernels `ba_terms`,
+`ba_solve`, `ba_backsub` and `ba_apply` (csrc/ba_gn.cu, algorithm in
+csrc/ba_gn.cuh): a single-device solve enqueues `launches_per_solve(iters)`
+launches and reads nothing back; iterations after the stop are no-ops on
+the device. The plain PyTorch version, `ba_solve_ref`, defines the
+semantics and is the CPU route; `ba_solve_impl` runs it on CPU tensors and
+the kernels on CUDA tensors, or raises. Nothing falls back.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -19,6 +29,8 @@ import torch.distributed as dist
 
 from ..utils import geometry as geo
 from ..utils.robust import huber_weight
+from . import kernels as KN
+from .kernels import launch as _launch
 
 
 class BAProblem(NamedTuple):
@@ -252,34 +264,53 @@ def _all_reduce(*xs: torch.Tensor, group) -> tuple:
     return tuple(out)
 
 
-def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = BAParams(),
-                  group=None, info: dict | None = None) -> BAResult:
-    """Up to `params.iters` damped GN iterations of sliding-window BA; stops
-    early once the largest pose update is below 1e-5. `info`, where given,
-    receives the number of iterations run under "iters".
+class _Anchored(NamedTuple):
+    """The solve's masks and the anchored start (ops/ba.py of the reference,
+    ba_solve_impl's prologue)."""
 
-    With a process group, the landmark rows of `problem` (Xw, pts, mask,
-    pts_r, mask_r, lm_valid) are this rank's shard and T_cw, kf_valid are
-    replicated. Assembly, elimination and back-substitution stay
-    shard-local. A solve of n iterations makes n + 2 all-reduces: the
-    starting error's sums; per iteration, the reduced camera system (S, s)
-    with the dy divergence count; the final error's sums with the
-    observation counts. Every rank then solves the same system
-    the same way, so dx, the stop test and the loop's length agree across
-    ranks; dy is shard-local and must not feed the stop test."""
+    mask: torch.Tensor  # [M, K] observation & live keyframe & active landmark
+    mask_r: torch.Tensor
+    lm_active: torch.Tensor  # [M]
+    opt_mask: torch.Tensor  # [K] live keyframes beyond the first n_fix
+    T_rw: torch.Tensor
+    T_wr: torch.Tensor
+    T_cr: torch.Tensor  # [K, 4, 4] poses anchored at window slot 0
+    Xr: torch.Tensor  # [M, 3]
+
+
+def _anchor(problem: BAProblem, params: BAParams) -> _Anchored:
     K = problem.T_cw.shape[0]
-    dev = problem.T_cw.device
     obs_mask = problem.mask & problem.kf_valid[None, :]
     obs_mask_r = problem.mask_r & problem.kf_valid[None, :]
     lm_active = problem.lm_valid & (torch.sum(obs_mask, dim=1) >= params.min_obs)
-    mask = obs_mask & lm_active[:, None]
-    mask_r = obs_mask_r & lm_active[:, None]
-
     T_rw = problem.T_cw[0]
     T_wr = geo.se3_inverse(T_rw)
-    T_cr = problem.T_cw @ T_wr
-    Xr = geo.transform_points(T_rw, problem.Xw)
-    opt_mask = problem.kf_valid & (torch.arange(K, device=dev) >= params.n_fix)
+    return _Anchored(
+        mask=obs_mask & lm_active[:, None], mask_r=obs_mask_r & lm_active[:, None], lm_active=lm_active,
+        opt_mask=problem.kf_valid & (torch.arange(K, device=problem.T_cw.device) >= params.n_fix),
+        T_rw=T_rw, T_wr=T_wr, T_cr=problem.T_cw @ T_wr, Xr=geo.transform_points(T_rw, problem.Xw),
+    )
+
+
+def _write_back(problem: BAProblem, params: BAParams, an: _Anchored, T_cr, Xr, err, n_l, n_r,
+                mean_err0) -> BAResult:
+    """The solved window back in the world frame (optimised poses
+    re-orthonormalised, the others bit-identical), the kill rule and the
+    error after the solve, from its sums (err, n_l) and the right-row count."""
+    T_cw_new = torch.where(an.opt_mask[:, None, None], geo.se3_project(T_cr @ an.T_rw), problem.T_cw)
+    Xw_new = torch.where(an.lm_active[:, None], geo.transform_points(an.T_wr, Xr), problem.Xw)
+    killed = an.lm_active & (torch.linalg.norm(Xr, dim=-1) > params.kill_dist)
+    return BAResult(T_cw_new, Xw_new, killed, err / torch.clamp(n_l, min=1), n_l + n_r, mean_err0)
+
+
+def ba_solve_ref(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = BAParams(),
+                 group=None, info: dict | None = None) -> BAResult:
+    """The plain PyTorch version of `ba_solve_impl` (same arguments and
+    result): the GN loop on the host, one host read per iteration for the
+    stop test. The CPU route, and the reference the kernels are held to."""
+    an = _anchor(problem, params)
+    mask, mask_r, lm_active, opt_mask = an.mask, an.mask_r, an.lm_active, an.opt_mask
+    T_cr, Xr = an.T_cr, an.Xr
 
     def err_sums(T_cr_e, Xr_e):
         """The masked left-row reprojection error's sum (px) and count."""
@@ -328,10 +359,167 @@ def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = B
     if info is not None:
         info["iters"] = it
 
-    T_cw_new = torch.where(opt_mask[:, None, None], geo.se3_project(T_cr @ T_rw), problem.T_cw)
-    Xw_new = torch.where(lm_active[:, None], geo.transform_points(T_wr, Xr), problem.Xw)
-    killed = lm_active & (torch.linalg.norm(Xr, dim=-1) > params.kill_dist)
     err, n_l, n_r = _all_reduce(*err_sums(T_cr, Xr), torch.sum(mask_r), group=group)
-    mean_err = err / torch.clamp(n_l, min=1)
-    n_obs = n_l + n_r
-    return BAResult(T_cw_new, Xw_new, killed, mean_err, n_obs, mean_err0)
+    return _write_back(problem, params, an, T_cr, Xr, err, n_l, n_r, mean_err0)
+
+
+# ---------------------------------------------------------------------------
+# The kernel route
+# ---------------------------------------------------------------------------
+
+# csrc/ba_gn.cuh's constants, sizes and `Args`, restated here; `check_layout`
+# holds them to the library's own when it is bound (kernels.bind_ba).
+MAX_K = 16  # kMaxK: the kernels' largest window
+_TL, _MAX_BLOCKS = 16, 64  # kTL landmarks per tile, kMaxBlocks tile blocks
+_TERMS, _ERR_INIT, _ERR_FINAL = 0, 1, 2  # ba_terms modes
+_SUM, _SOLVE = 1, 2  # ba_solve phases
+
+
+def launches_per_solve(iters: int) -> int:
+    """Kernel launches a single-device solve of `iters` iterations enqueues:
+    the starting error, four per iteration (whether or not the loop has
+    stopped: a stopped iteration's launches return at once), the final
+    error. A group solve of n iterations run makes 5 n + 2."""
+    return 4 * iters + 2
+
+
+def n_part(K: int) -> int:
+    """Floats of one tile block's partial sums (ba_gn.cuh n_part)."""
+    return 48 * K + 36 * K * K + 1
+
+
+def n_sys(K: int) -> int:
+    """Floats of the reduced system (S, s, n_bad), the all-reduced buffer."""
+    return 36 * K * K + 6 * K + 1
+
+
+class _Args(ctypes.Structure):
+    """`ba_gn::Args` of csrc/ba_gn.cuh, field for field."""
+
+    _fields_ = [
+        *((n, ctypes.c_void_p) for n in ("pts", "pts_r", "mask", "mask_r", "active", "opt", "T_rl", "T_in",
+                                         "X_in")),
+        ("M", ctypes.c_int),
+        ("K", ctypes.c_int),
+        *((n, ctypes.c_float) for n in ("fx", "fy", "cx", "cy", "huber_delta", "lam", "max_trans_update")),
+        ("iters", ctypes.c_int),
+        ("group", ctypes.c_int),
+        ("n_blocks", ctypes.c_int),
+        *((n, ctypes.c_void_p) for n in ("T", "X", "stop_at", "part", "err_part", "sys", "dx", "T_new", "dx_bad",
+                                         "dy", "dy_bad")),
+    ]
+
+
+def check_layout(lib: ctypes.CDLL) -> None:
+    """Raise unless `lib`'s `ba_layout` (csrc/ba_gn.cuh's constants, n_part
+    and n_sys at every K, sizeof(Args) and its field offsets) equals what
+    this module restates: a drift would corrupt device memory silently."""
+    fields = [f for f, _ in _Args._fields_]
+    for K in range(1, MAX_K + 1):
+        want = [MAX_K, _TL, _MAX_BLOCKS, _TERMS, _ERR_INIT, _ERR_FINAL, _SUM, _SOLVE, n_part(K), n_sys(K),
+                ctypes.sizeof(_Args), *(getattr(_Args, f).offset for f in fields)]
+        buf = (ctypes.c_int * len(want))()
+        n = lib.ba_layout(K, buf, len(want))
+        if n != len(want) or list(buf) != want:
+            raise RuntimeError(f"ops/ba.py and csrc/ba_gn.cuh disagree on the kernels' layout at K = {K}: "
+                               f"library {list(buf)[:n]} ({n} ints), ops/ba.py {want}")
+
+
+def _check(problem: BAProblem, T_rl) -> torch.device:
+    """Checks the problem as the kernels take it (on either device); returns
+    its one device."""
+    f32, b8 = torch.float32, torch.bool
+    K, M = problem.T_cw.shape[0], problem.Xw.shape[0]
+    for name, shape, dtype in (("T_cw", (K, 4, 4), f32), ("Xw", (M, 3), f32), ("pts", (M, K, 2), f32),
+                               ("mask", (M, K), b8), ("pts_r", (M, K, 2), f32), ("mask_r", (M, K), b8),
+                               ("kf_valid", (K,), b8), ("lm_valid", (M,), b8)):
+        KN.check(name, getattr(problem, name), dtype, shape, contiguous=False)
+    KN.check("T_rl", T_rl, f32, (4, 4), contiguous=False)
+    return KN.one_device([*problem, T_rl])
+
+
+def _ba_kernels(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams, group, info, lib,
+                launch=None, stream=None) -> BAResult:
+    """The kernel route: the launch sequence of csrc/ba_gn.cuh through
+    `lib`'s four launchers, `launch(name, c_fn, argv)` per launch (default
+    `kernels.launch`, which counts it). On one device nothing is read back
+    (`info`, where given, reads the iteration count once at the end). With
+    a group, ba_solve's sum and solve phases sit on both sides of the
+    all-reduce of (S, s, n_bad), and the host reads the stop flag once per
+    iteration."""
+    K, M = problem.T_cw.shape[0], problem.Xw.shape[0]
+    if K > MAX_K:
+        raise ValueError(f"ba kernels: a window of {K} keyframes, at most {MAX_K}")
+    an = _anchor(problem, params)
+    dev = problem.T_cw.device
+    G = max(1, min(_MAX_BLOCKS, -(-M // _TL)))
+
+    def empty(n, dtype=torch.float32):
+        return torch.empty(n, dtype=dtype, device=dev)
+
+    ins = dict(pts=problem.pts.contiguous(), pts_r=problem.pts_r.contiguous(), mask=an.mask, mask_r=an.mask_r,
+               active=an.lm_active, opt=an.opt_mask, T_rl=T_rl.contiguous(), T_in=an.T_cr.contiguous(),
+               X_in=an.Xr.contiguous())
+    T, X = torch.empty_like(an.T_cr), torch.empty_like(an.Xr)
+    stop_at, err_part, sys_ = empty(1, torch.int32), empty(2 * G), empty(n_sys(K))
+    bufs = dict(T=T, X=X, stop_at=stop_at, part=empty(G * n_part(K)), err_part=err_part, sys=sys_, dx=empty(6 * K),
+                T_new=empty(16 * K), dx_bad=empty(1, torch.int32), dy=empty(3 * M), dy_bad=empty(G, torch.int32))
+    args = _Args(**{k: v.data_ptr() for k, v in {**ins, **bufs}.items()}, M=M, K=K, fx=float(fx), fy=float(fy),
+                 cx=float(cx), cy=float(cy), huber_delta=float(params.huber_delta), lam=float(params.lam),
+                 max_trans_update=float(params.max_trans_update), iters=int(params.iters),
+                 group=int(group is not None), n_blocks=G)
+    args.tensors = (ins, bufs)  # what it points at lives as long as it does (a replay of its launches)
+    ref = ctypes.byref(args)
+
+    launch = launch or _launch
+
+    def go(name, *argv):
+        launch(name, getattr(lib, name + "_launch"), (ref, *argv, stream))
+
+    go("ba_terms", -1, _ERR_INIT)
+    err0, n0 = _all_reduce(torch.sum(err_part[:G]), torch.sum(an.mask), group=group)
+    for it in range(params.iters):
+        go("ba_terms", it, _TERMS)
+        if group is None:
+            go("ba_solve", it, _SUM | _SOLVE)
+        else:
+            go("ba_solve", it, _SUM)
+            sys_.copy_(_all_reduce(sys_, group=group)[0])
+            go("ba_solve", it, _SOLVE)
+        go("ba_backsub", it)
+        go("ba_apply", it)
+        if group is not None and int(stop_at) == it + 1:
+            break
+    go("ba_terms", -1, _ERR_FINAL)
+    if info is not None:
+        info["iters"] = int(stop_at)
+    err, n_l, n_r = _all_reduce(torch.sum(err_part[G:]), torch.sum(an.mask), torch.sum(an.mask_r), group=group)
+    return _write_back(problem, params, an, T, X, err, n_l, n_r, err0 / torch.clamp(n0, min=1))
+
+
+def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = BAParams(),
+                  group=None, info: dict | None = None) -> BAResult:
+    """Up to `params.iters` damped GN iterations of sliding-window BA; stops
+    early once the largest pose update is below 1e-5. `info`, where given,
+    receives the number of iterations run under "iters".
+
+    The problem's tensors and T_rl (float32 and bool, shapes as BAProblem
+    says) lie on one device. On the CPU this is `ba_solve_ref`; on a CUDA
+    device the `ba_*` kernels, for windows of at most MAX_K keyframes.
+
+    With a process group, the landmark rows of `problem` (Xw, pts, mask,
+    pts_r, mask_r, lm_valid) are this rank's shard and T_cw, kf_valid are
+    replicated. Assembly, elimination and back-substitution stay
+    shard-local. A solve of n iterations makes n + 2 all-reduces: the
+    starting error's sums; per iteration, the reduced camera system (S, s)
+    with the dy divergence count; the final error's sums with the
+    observation counts. Every rank then solves the same system
+    the same way, so dx, the stop test and the loop's length agree across
+    ranks; dy is shard-local and must not feed the stop test."""
+    if _check(problem, T_rl).type == "cpu":
+        return ba_solve_ref(problem, fx, fy, cx, cy, T_rl, params, group, info)
+    lib = KN.build()
+    dev = problem.T_cw.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return _ba_kernels(problem, fx, fy, cx, cy, T_rl, params, group, info, lib, stream=stream)

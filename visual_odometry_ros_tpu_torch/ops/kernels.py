@@ -1,6 +1,6 @@
 """Build, launch counting and input checks shared by the hand-written CUDA
 kernels of `csrc/` (`klt_pyr`, `klt_scale` in klt.cu; `pose_gn` in
-pose_gn.cu).
+pose_gn.cu; `ba_terms`, `ba_solve`, `ba_backsub`, `ba_apply` in ba_gn.cu).
 
 `build()` compiles every `csrc/*.cu` in one nvcc call for sm_90a into one
 shared library with a plain C interface under `build/kernels/` at the
@@ -27,7 +27,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-LAUNCHES = {"klt_pyr": 0, "klt_scale": 0, "pose_gn": 0}
+LAUNCHES = {"klt_pyr": 0, "klt_scale": 0, "pose_gn": 0, "ba_terms": 0, "ba_solve": 0, "ba_backsub": 0,
+            "ba_apply": 0}
 
 _LIB = None
 BUILD_INFO: dict = {}
@@ -72,6 +73,25 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.klt_scale_launch.restype = I
     lib.pose_gn_launch.argtypes = [P, P]
     lib.pose_gn_launch.restype = I
+    bind_ba(lib)
+
+
+def bind_ba(lib: ctypes.CDLL) -> None:
+    """Argument types of ba_gn.cu's four launchers and `ba_layout` (the
+    one-thread host build, csrc/ba_gn_host.cpp, exports them under the same
+    names); then ops/ba.check_layout, which raises if ops/ba.py's copy of the
+    kernels' layout differs from the library's."""
+    from .ba import check_layout
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for name, argv in (("ba_terms", [P, I, I, P]), ("ba_solve", [P, I, I, P]), ("ba_backsub", [P, I, P]),
+                       ("ba_apply", [P, I, P])):
+        fn = getattr(lib, name + "_launch")
+        fn.argtypes = argv
+        fn.restype = I
+    lib.ba_layout.argtypes = [I, ctypes.POINTER(I), I]
+    lib.ba_layout.restype = I
+    check_layout(lib)
 
 
 def build() -> ctypes.CDLL:
@@ -116,15 +136,16 @@ def launch(name: str, fn, argv: tuple) -> None:
     LAUNCHES[name] += 1
 
 
-def check(name, t, dtype, shape=None) -> None:
-    """Raise unless `t` is a contiguous tensor of `dtype` (and `shape`)."""
+def check(name, t, dtype, shape=None, contiguous=True) -> None:
+    """Raise unless `t` is a tensor of `dtype` (and `shape`), contiguous
+    unless `contiguous` is False."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 

@@ -6,7 +6,8 @@ Runs bench.py's configuration and world (KITTI-size 1241x376, 1024 tracks,
 pipeline with one `track_stereo_batch` over 1 + BATCH frames, and from that
 evolved state times the serving path (`track_stereo_batch` over the next
 BATCH frames, per frame), the steady step, its four stages, the
-replenishment cascade and its sub-stages, and the keyframe step:
+replenishment cascade and its sub-stages, the keyframe step, and the window
+BA solve alone on the keyframe step's own problem (`ba_solve`):
 
 - device ms: CUDA events around n calls, divided by n, after a warm-up;
 - host ms: the host clock around the same n calls, ending in a synchronise;
@@ -17,8 +18,8 @@ Each is the min over trials (the reference's number) with the median and
 the max beside it. Then, over one steady `track_stereo_batch` call, the
 device's busy and idle share and its top operations (`torch.profiler`; the
 hand-written kernels' trace events are held to `ops/kernels.LAUNCHES`), the host
-syncs of one `_steady_step` and per frame of the batch
-(`torch.cuda.set_sync_debug_mode`), and the matmul-class FLOPs per frame
+syncs of one `_steady_step`, of one `_keyframe_step` and of its BA solve
+alone, and per frame of the batch (`torch.cuda.set_sync_debug_mode`), and the matmul-class FLOPs per frame
 (`torch.utils.flop_counter`). --mono adds the idle share and syncs of
 `MonoVO.track_batch` at eval_accuracy's mono configuration.
 
@@ -61,9 +62,10 @@ PEAK_FP32_FLOPS = 67e12
 STAGE_KEYS = (
     "scan_per_frame", "steady_step_full", "track_stage", "stereo_stage", "pose_stage", "update_stage",
     "replenish_total", "rep_detect", "rep_coarse_disp", "rep_stereo_match", "rep_zncc_verify",
-    "rep_descriptors", "keyframe_ba",
+    "rep_descriptors", "keyframe_ba", "ba_solve",
 )
-KERNELS = {"klt_pyr": "klt_pyr_kernel", "klt_scale": "klt_scale_kernel", "pose_gn": "pose_gn_kernel"}
+KERNELS = {"klt_pyr": "klt_pyr_kernel", "klt_scale": "klt_scale_kernel", "pose_gn": "pose_gn_kernel",
+           **{k: f"{k}_kernel" for k in ("ba_terms", "ba_solve", "ba_backsub", "ba_apply")}}
 WINDOW_LABEL = "vo_profile_window"
 MONO_FRAMES = 49  # --mono: the first HardSequence frames, as chip_smoke's mono path
 MONO_BATCH = 12  # mono frames per track_batch call: the warm-up's and the profiled one's
@@ -286,11 +288,33 @@ def count_flops(fn) -> int:
 # ---------------------------------------------------------------------------
 
 
+def keyframe_problem(vo, state) -> tuple:
+    """The arguments of the window BA solve that `vo._keyframe_step(state)`
+    makes (`ops/ba.ba_solve_impl`'s), caught by running the step once."""
+    from .ops import ba as BA
+
+    orig, seen = BA.ba_solve_impl, []
+
+    def record(*args, **kwargs):
+        seen.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    BA.ba_solve_impl = record
+    try:
+        vo._keyframe_step(state)
+    finally:
+        BA.ba_solve_impl = orig
+    if len(seen) != 1:
+        raise RuntimeError(f"the keyframe step made {len(seen)} BA solves, expected 1")
+    return seen[0]
+
+
 def stage_calls(vo, state, im_l, im_r) -> dict:
     """{stage key: zero-argument call} of every stage of one steady frame
     from `state` on the float32 frame (im_l, im_r) (the reference script's
     stage decomposition), each fed the outputs of the stages before it,
     which run once here. `scan_per_frame` is not among them."""
+    from .ops import ba as BA
     from .ops import features as F
     from .ops import stereo_disparity as SD
 
@@ -309,6 +333,7 @@ def stage_calls(vo, state, im_l, im_r) -> dict:
     disp_prior, _, _ = vo._coarse_disparity_prior(pyr_l, pyr_r, new_pts)
     _, ok_rn, disp_n = vo._stereo_match(pyr_l, pyr_r, new_pts, new_ok, disp_prior=disp_prior)
     state2 = vo._steady_step(state, im_l, im_r)[0]
+    ba_args, ba_kwargs = keyframe_problem(vo, state2)
     return {
         "steady_step_full": lambda: vo._steady_step(state, im_l, im_r),
         "track_stage": lambda: vo._track_stage(state, im_l, im_r),
@@ -324,6 +349,7 @@ def stage_calls(vo, state, im_l, im_r) -> dict:
                                                             new_ok & ok_rn),
         "rep_descriptors": lambda: F.orb_descriptors(pyr_l[0][0], new_pts),
         "keyframe_ba": lambda: vo._keyframe_step(state2),
+        "ba_solve": lambda: BA.ba_solve_impl(*ba_args, **ba_kwargs),
     }
 
 
@@ -362,8 +388,8 @@ def profile_stereo(vo, il, ir, batch: int, reps: int = 20, trials: int = 5, flop
     im_r = torch.as_tensor(nr[0]).to(device).to(torch.float32)
     calls = stage_calls(vo, state, im_l, im_r)
     for key, fn in calls.items():
-        stages[key] = time_call(fn, device, reps=max(1, reps // 4) if key == "keyframe_ba" else reps,
-                                trials=trials)
+        slow = key in ("keyframe_ba", "ba_solve")
+        stages[key] = time_call(fn, device, reps=max(1, reps // 4) if slow else reps, trials=trials)
         stages[key]["busy_ms"] = trace_window(fn, device)["busy_ms"] if card else None
     steady_stats = calls["steady_step_full"]()[1]
     stages["steady_step_full"]["recovered"] = int(steady_stats.recovered)
@@ -386,6 +412,8 @@ def profile_stereo(vo, il, ir, batch: int, reps: int = 20, trials: int = 5, flop
         wall["trace"], t0 = time.perf_counter() - t0, time.perf_counter()
         out["host_syncs"] = {
             "steady_step": count_syncs(calls["steady_step_full"], device),
+            "keyframe_step": count_syncs(calls["keyframe_ba"], device),
+            "ba_solve": count_syncs(calls["ba_solve"], device),
             "batch_per_frame": count_syncs(scan, device) / batch,
         }
         wall["syncs"] = time.perf_counter() - t0
@@ -495,9 +523,12 @@ def summary_lines(rec) -> list:
             continue
         share = "not measured (no device events in the trace)" if d["idle_share"] is None else \
             f"{d['idle_share']:.4f} ({d['busy_ms']:.2f} of {d['window_ms']:.2f} ms busy)"
+        syncs = part["host_syncs"]
+        kf = (f"{syncs['keyframe_step']} per _keyframe_step ({syncs['ba_solve']} in its BA solve), "
+              if "keyframe_step" in syncs else "")
         lines.append(f"{name} device idle share over one batch call: {share}; host syncs: "
-                     f"{part['host_syncs']['steady_step']} per _steady_step, "
-                     f"{part['host_syncs']['batch_per_frame']:.2f} per frame of the batch")
+                     f"{syncs['steady_step']} per _steady_step, {kf}"
+                     f"{syncs['batch_per_frame']:.2f} per frame of the batch")
         lines.append(f"{name} top device ops: " + "; ".join(
             f"{o['name'][:60]} x{o['count']} {o['total_ms']:.3f} ms" for o in d["top_ops"][:5]))
     return lines

@@ -93,10 +93,11 @@ def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
 
 def rt_to_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
-    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
+    # The bottom row comes from an identity made on the device: a Python
+    # scalar written into a CUDA tensor is a host-to-device copy, which syncs.
+    T = _eye(4, R, batch + (4, 4)).clone(memory_format=torch.contiguous_format)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
     return T
 
 
