@@ -31,8 +31,11 @@ the final line):
      BA problem, the `ba_*` kernels on each and on dryrun_multichip's
      against `ba_solve_ref`, two solves bit-identical, launches per solve,
      device ms per solve (its launches replayed) and per kernel
-     (torch.profiler), wrapper host us, the plain version's ms, and the
-     bound from the problem's masks;
+     (torch.profiler), wrapper host us and its parts, the plain version's
+     ms, the bound from the problem's masks, ba_solve's library yardstick
+     (torch.linalg.cholesky_ex + cholesky_solve of the same system) and
+     each launch's registers, shared memory and blocks per SM; each problem
+     is saved under build/chip_smoke_ba/ for `ba_ab`;
   4. per-frame path: `StereoVO(cfg, device="cuda")` at the bench.py
      configuration over 1 + 18 frames of the bench corridor at 0.25 m/frame
      through `track_stereo_images`; times steady and keyframe steps and
@@ -968,8 +971,10 @@ def ba_work(problem, params, iters: int) -> dict:
     """{kernel: (operations, bytes)} that a solve of `iters` iterations
     needs on `problem`, from its masks as the solve sees them (OPS' ba_*
     entries; a kernel's bytes are the inputs it must read and the outputs it
-    must write once per solve: ba_terms the observations, points and poses,
-    ba_solve the poses, ba_backsub dy, ba_apply the points in and out)."""
+    must write once per solve: ba_terms the observations, points and poses
+    in and, since it writes the window back, the points, kill flags and
+    poses out; ba_solve the poses, ba_backsub dy, ba_apply the points in and
+    out)."""
     from visual_odometry_ros_tpu_torch.ops import ba as BA
 
     an = BA._anchor(problem, params)
@@ -996,7 +1001,8 @@ def ba_work(problem, params, iters: int) -> dict:
         "ba_apply": iters * OPS["ba_apply_landmark"] * lms,
     }
     nbytes = {
-        "ba_terms": 2 * M * K + 8 * int(an.mask.sum() + an.mask_r.sum()) + 12 * M + M + 64 * K + K,
+        "ba_terms": 2 * M * K + 8 * int(an.mask.sum() + an.mask_r.sum()) + 12 * M + M + 64 * K + K
+        + 12 * M + M + 64 * K,
         "ba_solve": 2 * 64 * K,
         "ba_backsub": 12 * M,
         "ba_apply": 24 * M + 64 * K,
@@ -1031,8 +1037,9 @@ def plain_split_ms(problem, fx, fy, cx, cy, T_rl, params, iters: int) -> dict:
     a solve of `iters` iterations at the start state of `problem`: per
     iteration build_observation_terms, assemble_normal_blocks and
     schur_reduce with the divergence flags (ba_terms, which also takes the
-    two error sums), solve_reduced (ba_solve), back_substitute (ba_backsub),
-    the guard and the update (ba_apply)."""
+    two error sums and, once, `_anchor` and `_write_back`), solve_reduced
+    (ba_solve), back_substitute (ba_backsub), the guard and the update
+    (ba_apply)."""
     import torch
 
     from visual_odometry_ros_tpu_torch.ops import ba as BA
@@ -1065,10 +1072,14 @@ def plain_split_ms(problem, fx, fy, cx, cy, T_rl, params, iters: int) -> dict:
         T = torch.where(an.opt_mask[:, None, None], geo.add_front_se3(T_cr, d), T_cr)
         return T, Xr + torch.where(bad, 0.0, dy), torch.amax(torch.abs(d)) < 1e-5
 
+    def ends():
+        a = BA._anchor(problem, params)
+        return BA._write_back(problem, params, a, a.T_cr, a.Xr, *[torch.zeros((), device=T_cr.device)] * 4)
+
     def ms(fn):
         return cuda_ms(fn, reps=5, warmup=1)
 
-    return {"ba_terms": iters * ms(terms) + 2 * ms(err),
+    return {"ba_terms": iters * ms(terms) + 2 * ms(err) + ms(ends),
             "ba_solve": iters * ms(lambda: BA.solve_reduced(S, s, an.opt_mask)),
             "ba_backsub": iters * ms(lambda: BA.back_substitute(Cinv, b, B, dx)),
             "ba_apply": iters * ms(apply)}
@@ -1077,16 +1088,17 @@ def plain_split_ms(problem, fx, fy, cx, cy, T_rl, params, iters: int) -> dict:
 def ba_host_split(solve, reps=20) -> dict:
     """Host us per call of `solve` (a single-device ba_solve_impl on CUDA
     tensors) in each part of the kernel route: the input checks (`_check`),
-    the anchored start (`_anchor`), the 4 iters + 2 ctypes launches
-    (`kernels.launch`), the write-back (`_write_back`), and the rest (the
-    build lookup, scratch from torch.empty, `_Args`, the error sums) as the
-    total less these; perf_counter around each part over `reps` calls, no
-    synchronise inside. The timers add ~0.3 us a part."""
+    the 4 iters + 2 ctypes launches (`kernels.launch`), the small ops that
+    turn the kernels' per-block error sums into the result (`_result`), and
+    the rest (the build lookup, scratch from torch.empty, `_Args`, the
+    per-block sums' reduction) as the total less these; perf_counter around
+    each part over `reps` calls, no synchronise inside. The timers add ~0.3
+    us a part."""
     import torch
 
     from visual_odometry_ros_tpu_torch.ops import ba as BA
 
-    parts = {"check": "_check", "anchor": "_anchor", "launches": "_launch", "write_back": "_write_back"}
+    parts = {"check": "_check", "launches": "_launch", "result": "_result"}
     acc = dict.fromkeys(parts, 0.0)
     orig = {k: getattr(BA, v) for k, v in parts.items()}
 
@@ -1121,6 +1133,65 @@ def ba_host_split(solve, reps=20) -> dict:
     return out
 
 
+def ba_occupancy(K: int, n_fix: int) -> dict:
+    """How each ba_* launch of a window of K slots sits on the card
+    (ba_gn.cu's `ba_occupancy`: cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor): {launch: {registers,
+    static and dynamic shared bytes, threads, blocks per SM}}."""
+    import ctypes
+
+    from visual_odometry_ros_tpu_torch.ops import kernels as KN
+
+    out = (ctypes.c_int * 25)()
+    rc = KN.build().ba_occupancy(K, n_fix, out)
+    assert rc == 0, f"ba_occupancy: cudaError {rc}"
+    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "threads", "blocks_per_sm")
+    return {name: dict(zip(keys, out[5 * i:5 * i + 5]))
+            for i, name in enumerate(("ba_terms", "ba_terms_err", "ba_solve", "ba_backsub", "ba_apply"))}
+
+
+def ba_solve_library_ms(problem, fx, fy, cx, cy, T_rl, params) -> dict:
+    """The yardstick for ba_solve, which the port never calls: one
+    torch.linalg.cholesky_ex and one torch.cholesky_solve of the Jacobi-
+    equilibrated reduced system at the problem's anchored start (CUDA
+    events), at n = 6 K (solve_reduced's gated system) and at n = 6 n_opt
+    (the optimisable slots only, what ba_solve factors)."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+
+    an = BA._anchor(problem, params)
+    w, r, Q, Rj = BA.build_observation_terms(an.T_cr, an.Xr, problem.pts, an.mask, problem.pts_r, an.mask_r,
+                                             fx, fy, cx, cy, T_rl, params.huber_delta)
+    S, s, _, _ = BA.schur_reduce(*BA.assemble_normal_blocks(w, r, Q, Rj), params.lam)
+    Hn, z, _ = BA.equilibrated_system(S, s, an.opt_mask)
+    idx = an.opt_mask.repeat_interleave(6)  # the optimisable slots' rows: their own equilibrated system
+
+    def solve(Hn, z):
+        L, _ = torch.linalg.cholesky_ex(Hn)
+        return torch.cholesky_solve(z[:, None], L)
+
+    comp = (Hn[idx][:, idx].contiguous(), z[idx])
+    return {"n_full": len(z), "ms_full": cuda_ms(lambda: solve(Hn, z), reps=50, warmup=5),
+            "n_opt": len(comp[1]), "ms_opt": cuda_ms(lambda: solve(*comp), reps=50, warmup=5)}
+
+
+def save_ba_problem(name: str, args: tuple, kwargs: dict) -> str:
+    """One recorded BA problem (ba_solve_impl's arguments, tensors on the
+    CPU) under build/chip_smoke_ba/, for `python -m
+    visual_odometry_ros_tpu_torch.ba_ab` to time in another tree of the
+    port."""
+    import torch
+
+    from visual_odometry_ros_tpu_torch.ba_ab import tensors
+
+    path = os.path.join(ROOT, "build", "chip_smoke_ba", name + ".pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save((tuple(tensors(a, torch.Tensor.cpu) for a in args), {k: v for k, v in kwargs.items() if k != "info"}),
+               path)
+    return path
+
+
 def ba_checks(cases: dict, card: str) -> dict:
     """Phase 3, ba_*, on the recorded window BA problems `cases` ({name:
     (args, kwargs) of ops/ba.ba_solve_impl}): launches per solve as
@@ -1130,8 +1201,11 @@ def ba_checks(cases: dict, card: str) -> dict:
     solve (the solve's C launcher calls replayed 20 times back to back
     between CUDA events) and its split by kernel (torch.profiler), the
     wrapper's host us per solve and per part (`ba_host_split`), the plain
-    version's ms per solve and per kernel share, and each kernel's bound
-    from the problem's masks. Returns {name: row}."""
+    version's ms per solve and per kernel share, each kernel's bound from
+    the problem's masks, ba_solve's library yardstick
+    (`ba_solve_library_ms`) and how each launch sits on the card
+    (`ba_occupancy`). Each problem is saved for `ba_ab` (`save_ba_problem`).
+    Returns {name: row}."""
     import torch
 
     from visual_odometry_ros_tpu_torch.ops import ba as BA
@@ -1201,7 +1275,9 @@ def ba_checks(cases: dict, card: str) -> dict:
                    plain_split_ms=plain_split_ms(problem, fx, fy, cx, cy, T_rl, params, info_k["iters"]),
                    host_us=host_us(lambda: solve(BA.ba_solve_impl), reps=20),
                    host_split_us=ba_host_split(lambda: solve(BA.ba_solve_impl)),
-                   bound_ms={k: b[0] for k, b in bounds.items()}, bound_by={k: b[1] for k, b in bounds.items()})
+                   bound_ms={k: b[0] for k, b in bounds.items()}, bound_by={k: b[1] for k, b in bounds.items()},
+                   library=ba_solve_library_ms(problem, fx, fy, cx, cy, T_rl, params),
+                   occupancy=ba_occupancy(K, params.n_fix), saved=save_ba_problem(name, args, kwargs))
         del tensors
         b_all = sum(row["bound_ms"].values())
         row["bound_share"] = b_all / row["ms"]
@@ -1215,6 +1291,14 @@ def ba_checks(cases: dict, card: str) -> dict:
                   f"{k} {v:.3f}" for k, v in row["plain_split_ms"].items())
               + f"); wrapper host {row['host_us']:.1f} us per solve (" + ", ".join(
                   f"{k} {v:.1f}" for k, v in row["host_split_us"].items()) + f" us) on {card}")
+        lib = row["library"]
+        print(f"time ba_solve {name} library yardstick (cholesky_ex + cholesky_solve, CUDA events): "
+              f"{lib['ms_full']:.4f} ms at n = {lib['n_full']}, {lib['ms_opt']:.4f} ms at n = {lib['n_opt']} "
+              f"per call; ba_solve {row['split_ms']['ba_solve'] / max(info_k['iters'], 1):.4f} ms per iteration "
+              f"on {card}")
+        print(f"occupancy ba_* {name} (K = {K}): " + "; ".join(
+            f"{k} {v['registers']} registers, {v['static_smem_bytes']} + {v['dynamic_smem_bytes']} B shared, "
+            f"{v['threads']} threads, {v['blocks_per_sm']} blocks/SM" for k, v in row["occupancy"].items()))
     return rows
 
 
@@ -2047,11 +2131,14 @@ def measurement_legs(frames, card, acc_fails: int) -> dict:
     rank (iters + 2 all-reduces per solve, their bytes as ops/ba.py packs
     them); h2d_overlap_probe's two upload routes. Returns the A/B kernel
     leg's kernel launch counts."""
+    import torch
+
     from visual_odometry_ros_tpu_torch import ab_frames as AB
     from visual_odometry_ros_tpu_torch import bench_scaling as BS
     from visual_odometry_ros_tpu_torch import eval_accuracy as EA
     from visual_odometry_ros_tpu_torch import h2d_overlap_probe as H2D
     from visual_odometry_ros_tpu_torch import profile_stages as PS
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
     from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
     out = os.path.join(ROOT, "build", "chip_smoke_legs")
@@ -2094,7 +2181,8 @@ def measurement_legs(frames, card, acc_fails: int) -> dict:
     (world,) = BS.main(["--worlds", "1", "--lm-per-rank", str(SCALING_M), "--window", str(SCALING_K),
                         "--iters", str(SCALING_ITERS), "--reps", str(SCALING_REPS),
                         "--json-out", os.path.join(out, BS.OUT_NAME)])
-    want_bytes = BS.payload_bytes_per_solve(world["iters_run"], SCALING_K)
+    full = torch.ones(SCALING_K, dtype=torch.bool)  # bench_scaling's window: every slot live
+    want_bytes = BS.payload_bytes_per_solve(world["iters_run"], SCALING_K, n_opt=BA.n_opt(full, BA.BAParams()))
     print(f"time BA scaling, world 1 ({world['backend']}, M = {world['landmarks']}, K = {SCALING_K}): "
           f"{world['value']:.2f} GN iters/s, {world['ms_per_solve']:.2f} ms per solve; per iteration assembly "
           f"{world['assembly_ms_per_iter']:.3f} ms, collective and solve "
@@ -2331,13 +2419,16 @@ def main() -> int:
         timing[k] = {"ms": kf["split_ms"][k], "plain_ms": kf["plain_split_ms"][k], "bound_ms": kf["bound_ms"][k],
                      "bound_by": kf["bound_by"][k], "host_us": kf["host_us"]}
         max_err[k] = max(r["max_abs_err_T_cw"] for r in ba_rows.values())
+    # ba_solve's yardstick per solve: the library's factor and solve of the
+    # optimisable slots' system, once per iteration run.
+    timing["ba_solve"]["library_ms"] = kf["library"]["ms_opt"] * kf["iters_kernel_plain"][0]
     table = {"kernels": [
         {
             "name": name, "route": "cuda", "source": f"visual_odometry_ros_tpu_torch/csrc/{source[name]}",
             "replaces": replaces[name], "launches": launches[name], "max_abs_err": max_err[name],
             "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
             "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
-            "library_ms": None, "host_ms": timing[name]["host_us"] * 1e-3,
+            "library_ms": timing[name].get("library_ms"), "host_ms": timing[name]["host_us"] * 1e-3,
         }
         for name in ("klt_pyr", "klt_scale", "pose_gn", *BA_KERNELS)
     ]}

@@ -823,12 +823,13 @@ def test_pose_gn_refuses_what_it_cannot_serve(dev):
 # ----------------------------------------------------------------------------
 
 
-def ba_window(dev, seed=3, K=10, M=4096, n_lm=3000, stereo=True):
+def ba_window(dev, seed=3, K=10, M=4096, n_lm=3000, stereo=True, n_kf=None):
     """tests/test_torch_ba_gn.py's window (keyframes 0.6 m apart down a
     street at KITTI's intrinsics, n_lm live landmarks, 0.3 px noise, right
     rows where the right camera sees the point unless mono, the optimisable
-    poses and every point perturbed), built with the port's geometry, on
-    `dev`. Returns (BAProblem, intrinsics, T_rl)."""
+    poses and every point perturbed; the slots from n_kf on not live), built
+    with the port's geometry, on `dev`. Returns (BAProblem, intrinsics,
+    T_rl)."""
     from visual_odometry_ros_tpu_torch.ops import ba as BA
 
     fx, cx, cy, W, H, base = 718.856, 607.1928, 185.2157, 1241, 376, 0.5371657
@@ -860,8 +861,20 @@ def ba_window(dev, seed=3, K=10, M=4096, n_lm=3000, stereo=True):
     T0[2:] = TG.add_front_se3(T0[2:], torch.as_tensor(rng.normal(0, 0.01, (K - 2, 6)), dtype=torch.float32))
     X0 = Xw + np.where(np.arange(M)[:, None] < n_lm, rng.normal(0, 0.05, (M, 3)), 0.0).astype(np.float32)
     prob = BA.BAProblem(*(torch.as_tensor(a).to(dev) for a in (T0.numpy(), X0, pts, mask, pts_r, mask_r,
-                                                                 np.ones(K, bool), np.arange(M) < n_lm)))
+                                                                 np.arange(K) < (n_kf or K), np.arange(M) < n_lm)))
     return prob, (fx, fx, cx, cy), torch.as_tensor(T_rl, device=dev)
+
+
+def assert_ba_close(got, ref, info_k, info_r):
+    """tests/test_torch_ops.py's tolerances (T_cw 2e-4, Xw 2e-3 relative and
+    absolute, mean error 1e-3 relative), killed and n_obs equal, iterations
+    equal or one apart."""
+    torch.testing.assert_close(got.T_cw, ref.T_cw, atol=2e-4, rtol=0)
+    torch.testing.assert_close(got.Xw, ref.Xw, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(got.mean_err_px, ref.mean_err_px, rtol=1e-3, atol=0)
+    torch.testing.assert_close(got.mean_err0_px, ref.mean_err0_px, rtol=1e-5, atol=0)
+    assert torch.equal(got.killed, ref.killed) and int(got.n_obs) == int(ref.n_obs)
+    assert abs(info_k["iters"] - info_r["iters"]) <= 1 and info_k["iters"] > 1, (info_k, info_r)
 
 
 @pytest.mark.cuda
@@ -883,12 +896,92 @@ def test_ba_kernels_match_the_plain_version(dev, kind):
         "ba_terms": params.iters + 2, "ba_solve": params.iters, "ba_backsub": params.iters,
         "ba_apply": params.iters}
     ref = BA.ba_solve_ref(prob, *intr, T_rl, params, info=info_r)
-    torch.testing.assert_close(got.T_cw, ref.T_cw, atol=2e-4, rtol=0)
-    torch.testing.assert_close(got.Xw, ref.Xw, atol=2e-3, rtol=2e-3)
-    torch.testing.assert_close(got.mean_err_px, ref.mean_err_px, rtol=1e-3, atol=0)
+    assert_ba_close(got, ref, info_k, info_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, n_kf, n_opt", [(8, 3, 1), (10, 6, 4), (9, 9, 7), (16, 16, 14)])
+def test_ba_kernels_solve_the_optimisable_slots_only(dev, K, n_kf, n_opt):
+    """ba_solve factors the 6 n_opt unknowns of the optimisable slots only:
+    one warp up to 32 (n_opt 1 and 4), the block by 6 x 6 keyframe blocks
+    above (7, and 14 in a window of 16 keyframes). The kernels against
+    ba_solve_ref under the same tolerances."""
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+
+    prob, intr, T_rl = ba_window(dev, seed=20 + K, K=K, M=4096 if K < 16 else 1024,
+                                 n_lm=3000 if K < 16 else 800, n_kf=n_kf)
+    params = BA.BAParams()
+    assert BA.n_opt(prob.kf_valid, params) == n_opt
+    info_k, info_r = {}, {}
+    got = BA.ba_solve_impl(prob, *intr, T_rl, params, info=info_k)
+    ref = BA.ba_solve_ref(prob, *intr, T_rl, params, info=info_r)
+    assert_ba_close(got, ref, info_k, info_r)
+
+
+@pytest.mark.cuda
+def test_ba_kernels_anchor_and_write_back_bit_for_bit(dev):
+    """In a window whose anchor pose is turned and tens of metres from the
+    world origin (where another rounding of the small products shows), the
+    first launch's anchored start (T_cr, Xr) and the last launch's
+    write-back equal ops/ba._anchor's and _write_back's bit for bit, and the
+    starting error stays within chip_smoke's 1e-5 of ba_solve_ref's."""
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+
+    prob, intr, T_rl = ba_window(dev, n_kf=7)
+    G = TG.se3_exp(torch.tensor([35.0, -4.0, 52.0, 0.3, -0.8, 0.2], device=dev))  # the world moved
+    prob = prob._replace(T_cw=prob.T_cw @ TG.se3_inverse(G), Xw=TG.transform_points(G, prob.Xw))
+    params = BA.BAParams()
+    an = BA._anchor(prob, params)
+    start, end = {}, {}
+
+    def launch(name, c_fn, argv):  # the state as the first launch leaves it and as the last one finds it
+        _, _, bufs = argv[0]._obj.tensors
+        final = name == "ba_terms" and argv[2] == BA._ERR_FINAL
+        if final:
+            end.update(T=bufs["T"].view(-1, 4, 4).clone(), X=bufs["X"].view(-1, 3).clone())
+        KN.launch(name, c_fn, argv)
+        if not start:
+            start.update(T=bufs["T"].view(-1, 4, 4).clone(), X=bufs["X"].view(-1, 3).clone())
+
+    got = BA._ba_kernels(prob, *intr, T_rl, params, None, None, KN.build(), launch=launch,
+                         stream=torch.cuda.current_stream(dev).cuda_stream)
+    act = an.lm_active
+    assert torch.equal(start["T"], an.T_cr) and torch.equal(start["X"][act], an.Xr[act])
+    zero = torch.zeros((), device=dev)
+    want = BA._write_back(prob, params, an, end["T"], end["X"], zero, zero, zero, zero)
+    for key in ("T_cw", "Xw", "killed"):
+        assert torch.equal(getattr(got, key), getattr(want, key)), key
+    ref = BA.ba_solve_ref(prob, *intr, T_rl, params)
     torch.testing.assert_close(got.mean_err0_px, ref.mean_err0_px, rtol=1e-5, atol=0)
-    assert torch.equal(got.killed, ref.killed) and int(got.n_obs) == int(ref.n_obs)
-    assert abs(info_k["iters"] - info_r["iters"]) <= 1 and info_k["iters"] > 1, (info_k, info_r)
+
+
+@pytest.mark.cuda
+def test_ba_kernels_fold_the_anchoring_and_the_write_back(dev):
+    """The first launch anchors and the last writes back, with no host sync:
+    at 0 iterations the solve is those two launches alone, against
+    ba_solve_ref; at 10, the fixed poses and the inactive landmarks come back
+    bit-identical to the input."""
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+
+    prob, intr, T_rl = ba_window(dev, n_kf=7)
+    prob = prob._replace(lm_valid=prob.lm_valid & (torch.arange(4096, device=dev) % 3 > 0))
+    BA.ba_solve_impl(prob, *intr, T_rl, BA.BAParams())  # builds and loads the library before the sync check
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ends, full = (BA.ba_solve_impl(prob, *intr, T_rl, BA.BAParams(iters=n)) for n in (0, 10))
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    ref = BA.ba_solve_ref(prob, *intr, T_rl, BA.BAParams(iters=0))
+    torch.testing.assert_close(ends.T_cw, ref.T_cw, atol=1e-6, rtol=0)
+    torch.testing.assert_close(ends.Xw, ref.Xw, atol=1e-5, rtol=1e-6)
+    torch.testing.assert_close(ends.mean_err_px, ref.mean_err_px, rtol=1e-5, atol=0)
+    assert torch.equal(ends.killed, ref.killed) and int(ends.n_obs) == int(ref.n_obs)
+    an = BA._anchor(prob, BA.BAParams())
+    for res in (ends, full):
+        assert torch.equal(res.T_cw[~an.opt_mask], prob.T_cw[~an.opt_mask])
+        assert torch.equal(res.Xw[~an.lm_active], prob.Xw[~an.lm_active])
 
 
 @pytest.mark.cuda

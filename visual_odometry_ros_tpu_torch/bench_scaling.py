@@ -40,13 +40,19 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT_NAME = "SCALING_TORCH.json"
 
 
-def payload_bytes_per_solve(iters: int, window: int) -> int:
+def payload_bytes_per_solve(iters: int, window: int, n_opt: int | None = None) -> int:
     """The float32 bytes `ops/ba.ba_solve_impl` all-reduces in a solve of
-    `iters` GN iterations over a window of K keyframes: per iteration S
-    [K, K, 6, 6], s [K, 6] and the divergence count; the starting error's
-    sum and count; the final error's sum and both observation counts."""
+    `iters` GN iterations over a window of K keyframes: per iteration the
+    reduced system with the divergence count (the plain version, on CPU
+    ranks: S [K, K, 6, 6] and s [K, 6]; the kernels, on CUDA ranks, given
+    the n_opt optimisable slots: S's lower block triangle and s over those,
+    `ops/ba.n_sys`); the starting error's sum and count; the final error's
+    sum and both observation counts."""
+    from .ops.ba import n_sys
+
     K = window
-    return iters * 4 * (36 * K * K + 6 * K + 1) + 4 * 2 + 4 * 3
+    per_iter = 36 * K * K + 6 * K + 1 if n_opt is None else n_sys(n_opt)
+    return iters * 4 * per_iter + 4 * 2 + 4 * 3
 
 
 def scaling_efficiency(base: dict, last: dict, strong: bool, host_limited: bool) -> dict:

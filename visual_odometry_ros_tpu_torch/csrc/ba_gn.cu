@@ -6,40 +6,57 @@
 // ba_solve_impl (visual_odometry_ros_tpu/ops/ba.py:417-419; the body
 // `iteration` :379-411 through build_observation_terms, assemble_normal_
 // blocks, schur_reduce, solve_reduced and back_substitute; the errors
-// `masked_mean_err` :366-372). A solve is a fixed sequence of launches that
-// ops/ba.py enqueues without reading anything back (4 iters + 2 on one
-// device): every kernel reads the device-side `stop_at` and returns at once
-// from the iteration the loop stopped at, as the while loop would not have
-// run it. The algorithm is in ba_gn.cuh, shared with the one-thread host
-// version that the CPU tests run.
+// `masked_mean_err` :366-372), with the anchoring before it and the
+// write-back after it (:348-363, :421-435). A solve is a fixed sequence of
+// launches that ops/ba.py enqueues without reading anything back (4 iters +
+// 2 on one device): every kernel reads the device-side `stop_at` and returns
+// at once from the iteration the loop stopped at, as the while loop would
+// not have run it. The algorithm is in ba_gn.cuh, shared with the one-thread
+// host version that the CPU tests run.
 //
 // What bounds it on this card: latency. At the main path's K = 10, M = 4096
 // an iteration's operations (the per-observation rows, and the reduced
-// system's S_off, 36 dot products of 3 per unordered pair of optimisable
-// keyframes a landmark is seen in) and bytes (the observations, read once)
-// bound it at a few microseconds;
-// the chain of each iteration is four launches, and inside ba_solve the
-// Cholesky's 60 dependent columns with two barriers each (chip_smoke.py
-// computes the bound from the masks of the recorded problems; PERF.md has
-// both).
+// system's S_off over pairs of optimisable keyframes a landmark is seen in)
+// and bytes (the observations, read once) bound it at well under a
+// microsecond; the chain of each iteration is four launches, inside each a
+// few dependent steps (chip_smoke.py computes the bound from the masks of
+// the recorded problems; PERF.md has both).
 //
 // What the design does about it:
-//   - no host round trip: the stop test, the guard and the pose update are
-//     device-side; the host enqueues 4 iters + 2 launches and returns;
-//   - ba_terms never writes the per-pair blocks (B, BCinv: 2 x 2.9 MB at the
-//     main path's size) to device memory: a block of kTermThreads threads
-//     builds a tile of kTL landmarks in shared memory, skips the masked
-//     (landmark, keyframe) pairs, and adds the tile's share of A, a, S_off,
-//     sb to per-block partial sums, each entry owned by one thread (no
-//     atomics); ba_backsub rebuilds the tile's blocks from the same inputs
-//     with the same code, bit for bit;
+//   - no host round trip: the anchoring, the stop test, the guard, the pose
+//     update and the write-back are device-side; the host enqueues 4 iters +
+//     2 launches, and turns three per-block sums into the error and count;
+//   - only the active landmarks are walked: the first launch lists them
+//     (block 0, a block-wide prefix), the tile launches cut that list into
+//     tiles of kTL, and a block with no tile returns at once; the grid is
+//     sized to the card, not to M: at most kMaxBlocks = 132 blocks, the
+//     H100's SM count, one block on each SM there (a card with more SMs
+//     leaves the rest idle, one with fewer runs them in turns)
+//     (a tile's 42-56 KB of shared memory at K = 8-10 would let 3-4 blocks
+//     share an SM, but every block adds its partials to ba_solve's sum: at
+//     the dense dryrun window's 256 tiles, 2 blocks per SM made ba_terms
+//     faster and the sum slower by as much);
+//   - only the optimisable slots are summed and solved: a tile's partials
+//     hold A, a, sb and the lower block triangle of S_off over them (553
+//     floats at the stereo keyframe's 4 slots, 4081 over all 10), C and b
+//     still over every observing slot;
+//   - ba_terms never writes the per-pair blocks (B, BCinv) to device memory:
+//     a block of kTermThreads threads builds a tile of kTL landmarks in
+//     shared memory and adds its share to per-block partial sums, each entry
+//     owned by one thread (no atomics); ba_backsub rebuilds the tile's blocks
+//     from the same inputs with the same code, bit for bit;
 //   - every cross-block sum is taken in block order by one owner (ba_solve
-//     sums the partials, ba_apply the counts): a relaunch is bit-identical;
-//   - ba_solve is one block: the 6K x 6K system stays in shared memory for
-//     the equilibration, the right-looking Cholesky and both triangular
-//     solves.
-// Merging launches (a cooperative grid sync) and tuning the tile are later
-// work.
+//     sums the partials, 16 loads in flight, ba_apply the counts): a
+//     relaunch is bit-identical;
+//   - ba_solve is one block; the system of the n = 6 n_opt unknowns stays in
+//     shared memory. Up to 32 unknowns (both keyframe problems of the main
+//     path) one warp factors and solves it, lanes owning rows, with
+//     __syncwarp between steps and no block barrier; above, the Cholesky
+//     works by 6 x 6 keyframe blocks, two block barriers per block column
+//     (the first warp factors the block column, then the block updates the
+//     trailing triangle), and the first warp alone runs both triangular
+//     solves, one __syncwarp per column.
+// Merging launches (a cooperative grid sync) is later work.
 //
 // Build: ops/kernels.py compiles csrc/*.cu in one nvcc call
 //        (-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared,
@@ -59,12 +76,53 @@ struct DeviceBlock {
   int tid, nthr, bid, nblk;
   __device__ DeviceBlock() : tid(threadIdx.x), nthr(blockDim.x), bid(blockIdx.x), nblk(gridDim.x) {}
   __device__ __forceinline__ void sync() { __syncthreads(); }
+  __device__ __forceinline__ void warp_sync() { __syncwarp(); }
+
+  // The block's sum of v, in every thread: warp xor shuffles, then the
+  // warps' sums in warp order.
+  __device__ float sum(float v) {
+    __shared__ float part[32];
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) part[warp] = v;
+    __syncthreads();
+    float s = 0.0f;
+    for (int w = 0; w < (nthr >> 5); ++w) s += part[w];
+    __syncthreads();
+    return s;
+  }
+
+  // The exclusive prefix of v over the block's threads in thread order, and
+  // the block's total.
+  __device__ int scan(int v, int* total) {
+    __shared__ int part[32];
+    const int lane = tid & 31, warp = tid >> 5;
+    int x = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) part[warp] = x;
+    __syncthreads();
+    int before = 0, all = 0;
+    for (int w = 0; w < (nthr >> 5); ++w) {
+      if (w < warp) before += part[w];
+      all += part[w];
+    }
+    __syncthreads();
+    *total = all;
+    return before + x - v;
+  }
 };
 
-__global__ void __launch_bounds__(kTermThreads) ba_terms_kernel(const Args a, int it, int mode) {
+__global__ void __launch_bounds__(kTermThreads, 2) ba_terms_kernel(const Args a, int it, int mode) {
   extern __shared__ float smem[];
+  __shared__ Slots s;
   DeviceBlock b;
-  terms_block(a, b, smem, it, mode);
+  if (mode == kTerms)
+    terms_block(a, b, s, smem, it);
+  else
+    err_block(a, b, smem, mode);
 }
 
 __global__ void __launch_bounds__(kSolveThreads, 1) ba_solve_kernel(const Args a, int it, int phase) {
@@ -73,10 +131,11 @@ __global__ void __launch_bounds__(kSolveThreads, 1) ba_solve_kernel(const Args a
   solve_block(a, b, sh, it, phase);
 }
 
-__global__ void __launch_bounds__(kTermThreads) ba_backsub_kernel(const Args a, int it) {
+__global__ void __launch_bounds__(kTermThreads, 2) ba_backsub_kernel(const Args a, int it) {
   extern __shared__ float smem[];
+  __shared__ Slots s;
   DeviceBlock b;
-  backsub_block(a, b, smem, it);
+  backsub_block(a, b, s, smem, it);
 }
 
 __global__ void __launch_bounds__(kApplyThreads) ba_apply_kernel(const Args a, int it) {
@@ -88,13 +147,15 @@ __global__ void __launch_bounds__(kApplyThreads) ba_apply_kernel(const Args a, i
 // opt in once, for the largest window.
 cudaError_t opt_in() {
   static cudaError_t rc = [] {
-    int bytes = tile_floats(kMaxK) * (int)sizeof(float);
+    int bytes = tile_floats(kMaxK, kMaxK) * (int)sizeof(float);
     cudaError_t e = cudaFuncSetAttribute(ba_terms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     return cudaFuncSetAttribute(ba_backsub_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   }();
   return rc;
 }
+
+size_t tile_bytes(const Args* a) { return tile_floats(a->K, max_opt(a->K, a->n_fix)) * sizeof(float); }
 
 }  // namespace ba_gn
 
@@ -106,7 +167,7 @@ extern "C" {
 int ba_terms_launch(const ba_gn::Args* a, int it, int mode, void* stream) {
   cudaError_t e = ba_gn::opt_in();
   if (e != cudaSuccess) return (int)e;
-  size_t smem = ba_gn::tile_floats(a->K) * sizeof(float);
+  size_t smem = mode == ba_gn::kTerms ? ba_gn::tile_bytes(a) : ba_gn::err_floats(a->K) * sizeof(float);
   ba_gn::ba_terms_kernel<<<a->n_blocks, ba_gn::kTermThreads, smem, (cudaStream_t)stream>>>(*a, it, mode);
   return (int)cudaGetLastError();
 }
@@ -119,18 +180,52 @@ int ba_solve_launch(const ba_gn::Args* a, int it, int phase, void* stream) {
 int ba_backsub_launch(const ba_gn::Args* a, int it, void* stream) {
   cudaError_t e = ba_gn::opt_in();
   if (e != cudaSuccess) return (int)e;
-  size_t smem = ba_gn::tile_floats(a->K) * sizeof(float);
-  ba_gn::ba_backsub_kernel<<<a->n_blocks, ba_gn::kTermThreads, smem, (cudaStream_t)stream>>>(*a, it);
+  ba_gn::ba_backsub_kernel<<<a->n_blocks, ba_gn::kTermThreads, ba_gn::tile_bytes(a), (cudaStream_t)stream>>>(*a, it);
   return (int)cudaGetLastError();
 }
 
 int ba_apply_launch(const ba_gn::Args* a, int it, void* stream) {
-  int grid = (3 * a->M + ba_gn::kApplyThreads - 1) / ba_gn::kApplyThreads;
+  int grid = (a->M + ba_gn::kApplyThreads - 1) / ba_gn::kApplyThreads;
   ba_gn::ba_apply_kernel<<<grid > 0 ? grid : 1, ba_gn::kApplyThreads, 0, (cudaStream_t)stream>>>(*a, it);
   return (int)cudaGetLastError();
 }
 
-// ba_gn.cuh's layout at K (ops/ba.py checks it against its own at bind time).
-int ba_layout(int K, int* out, int cap) { return ba_gn::layout(K, out, cap); }
+// ba_gn.cuh's layout at n optimisable slots (ops/ba.py checks it against its
+// own at bind time).
+int ba_layout(int n, int* out, int cap) { return ba_gn::layout(n, out, cap); }
+
+// How each launch of a window of K slots (n_fix fixed) sits on the card:
+// per launch (ba_terms' tile mode, ba_terms' error modes, ba_solve,
+// ba_backsub, ba_apply) its registers per thread, static and dynamic shared
+// bytes per block, threads per block and resident blocks per SM. Writes 25
+// ints; returns a cudaError_t.
+int ba_occupancy(int K, int n_fix, int* out) {
+  cudaError_t e = ba_gn::opt_in();
+  if (e != cudaSuccess) return (int)e;
+  ba_gn::Args a{};
+  a.K = K;
+  a.n_fix = n_fix;
+  const void* fns[5] = {(const void*)ba_gn::ba_terms_kernel, (const void*)ba_gn::ba_terms_kernel,
+                        (const void*)ba_gn::ba_solve_kernel, (const void*)ba_gn::ba_backsub_kernel,
+                        (const void*)ba_gn::ba_apply_kernel};
+  const int threads[5] = {ba_gn::kTermThreads, ba_gn::kTermThreads, ba_gn::kSolveThreads, ba_gn::kTermThreads,
+                          ba_gn::kApplyThreads};
+  const size_t dyn[5] = {ba_gn::tile_bytes(&a), ba_gn::err_floats(K) * sizeof(float), 0, ba_gn::tile_bytes(&a), 0};
+  for (int i = 0; i < 5; ++i) {
+    cudaFuncAttributes attr;
+    e = cudaFuncGetAttributes(&attr, fns[i]);
+    if (e != cudaSuccess) return (int)e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[i], threads[i], dyn[i]);
+    if (e != cudaSuccess) return (int)e;
+    int* o = out + 5 * i;
+    o[0] = attr.numRegs;
+    o[1] = (int)attr.sharedSizeBytes;
+    o[2] = (int)dyn[i];
+    o[3] = threads[i];
+    o[4] = blocks;
+  }
+  return 0;
+}
 
 }  // extern "C"

@@ -6,34 +6,60 @@
 // launchers, so that the CPU tests run the kernels' launch sequence, formula
 // for formula, against the plain PyTorch version. Both run the code below;
 // they differ only in `Blk` (the thread's and the block's index, the counts,
-// a barrier). The host runs a launch's blocks one after the other, each with
-// one thread; every sum is taken in the same order on both.
+// the block and warp barriers, a block-wide sum and prefix). The host runs a
+// launch's blocks one after the other, each with one thread.
 //
-// Semantics: ops/ba.py's plain version (`ba_solve_ref`: build_observation_
-// terms, assemble_normal_blocks, schur_reduce, solve_reduced,
-// back_substitute, the guard, the early stop), formula for formula, with
-// add_front_se3 from pose_gn.cuh. One difference, exact for finite inputs: a
-// row whose observation mask is False adds an exact zero to every sum in the
-// plain version (its weight is 0 and its pixel, a zero where the ring holds
-// no observation, is finite), and here it is skipped.
+// Semantics: ops/ba.py's plain version (`ba_solve_ref`: _anchor,
+// build_observation_terms, assemble_normal_blocks, schur_reduce,
+// solve_reduced, back_substitute, the guard, the early stop, _write_back),
+// formula for formula, with add_front_se3 from pose_gn.cuh and
+// utils/geometry's se3_inverse, transform_points and so3_project. The small
+// matrix products and the residuals round as the plain version's do on the
+// same device (`dot`, `dot3_mv`, `mul_rn`), so the anchored start and the
+// write-back equal _anchor's and _write_back's bit for bit. Three
+// differences, exact for finite inputs:
+//   - a row whose observation mask is False adds an exact zero to every sum
+//     in the plain version (its weight is 0 and its pixel, a zero where the
+//     ring holds no observation, is finite); here it is skipped, and so is
+//     every landmark that is not active;
+//   - solve_reduced gates the fixed and empty slots to unit rows of the
+//     system and dx = 0; here they are left out of it: only the n_opt
+//     optimisable slots are summed, factored and solved (their entries and
+//     the order of every operation on them are the plain version's), and the
+//     fixed slots' dx is an exact 0;
+//   - the Cholesky reads the lower triangle only, as cholesky_ex does, so
+//     only the lower block triangle of S_off is summed.
+// A non-finite entry of a fixed slot's block fails the plain version's
+// Cholesky and refuses the step; here the same step is refused by the
+// divergence count, since such an entry comes from a non-finite B, b or Cinv
+// of an active landmark. Only a product BCinv B that overflows while both
+// factors are finite, on a pair with a fixed slot, decides otherwise.
 //
 // Launch sequence of a single-device solve (ops/ba.py enqueues it; 4 iters + 2
 // launches, no host read):
-//   ba_terms(kErrInit)   copy the anchored start into the state, stop_at =
-//                        iters, the starting error's per-block sums;
+//   ba_terms(kErrInit)   _anchor: the masks, lm_active, opt_mask and the
+//                        start anchored at slot 0 (T_cr, Xr) into the state;
+//                        the list of active landmark slots (block 0);
+//                        stop_at = iters; the starting error's per-block sums;
 //   per iteration it = 0 .. iters - 1, each a no-op once it >= stop_at:
-//     ba_terms(kTerms)   per landmark tile: the landmark blocks (C, b, B,
-//                        Cinv, BCinv) and the tile's share of A, a, S_off,
-//                        sb and the divergence count, as per-block partials;
+//     ba_terms(kTerms)   per tile of kTL listed landmarks: the landmark
+//                        blocks (C, b, B, Cinv, BCinv) and the tile's share of
+//                        A, a, S_off, sb over the optimisable slots and the
+//                        divergence count, as per-block partials;
 //     ba_solve(kSum|kSolve) one block: the partials summed in block order
-//                        into (S, s, n_bad), then the gated, Jacobi-
-//                        equilibrated float32 Cholesky, both triangular
-//                        solves, the dx guard and the candidate poses;
-//     ba_backsub         per landmark tile: dy = Cinv (b - B^T dx) and the
-//                        tile's count of non-finite dy;
+//                        into (S, s, n_bad) of the optimisable slots, then
+//                        the Jacobi-equilibrated float32 Cholesky, both
+//                        triangular solves (one warp when n_opt <= 5, else
+//                        the block by 6 x 6 keyframe blocks), the dx guard
+//                        and the candidate poses;
+//     ba_backsub         per tile: dy = Cinv (b - B^T dx) and the tile's
+//                        count of non-finite dy;
 //     ba_apply           the guard's decision (counts summed in block order),
-//                        Xr += dy, T_cr, and stop_at = it + 1 once done;
-//   ba_terms(kErrFinal)  the final error's per-block sums.
+//                        Xr += dy on the listed landmarks, T_cr, and
+//                        stop_at = it + 1 once done;
+//   ba_terms(kErrFinal)  the final error's per-block sums and _write_back:
+//                        T_cw (re-orthonormalised where optimised), Xw,
+//                        killed.
 // With a process group, ba_solve runs twice per iteration (kSum, then kSolve)
 // around the all-reduce of (S, s, n_bad).
 
@@ -45,10 +71,11 @@
 
 namespace ba_gn {
 
-constexpr int kMaxK = 16;        // keyframes in a window
-constexpr int kMaxN = 6 * kMaxK;  // the reduced system's size
-constexpr int kTL = 16;          // landmarks per tile
-constexpr int kMaxBlocks = 64;   // landmark-tile blocks of ba_terms and ba_backsub
+constexpr int kMaxK = 16;                          // keyframes in a window
+constexpr int kMaxN = 6 * kMaxK;                   // the reduced system's size
+constexpr int kMaxPairs = kMaxK * (kMaxK + 1) / 2;  // its lower block triangle
+constexpr int kTL = 16;                            // landmarks per tile
+constexpr int kMaxBlocks = 132;  // blocks of ba_terms and ba_backsub: one on each of the H100's 132 SMs
 
 // ba_terms modes and ba_solve phases.
 constexpr int kTerms = 0, kErrInit = 1, kErrFinal = 2;
@@ -56,94 +83,204 @@ constexpr int kSum = 1, kSolve = 2;
 
 // `_Args` of ops/ba.py, field for field.
 struct Args {
-  const float* pts;    // [M, K, 2] left observations (px)
-  const float* pts_r;  // [M, K, 2] right observations
-  const bool* mask;    // [M, K] observation & live keyframe & active landmark
-  const bool* mask_r;  // [M, K]
-  const bool* active;  // [M] lm_active
-  const bool* opt;     // [K] opt_mask
-  const float* T_rl;   // [4, 4]
-  const float* T_in;   // [K, 4, 4] anchored start poses T_cr
-  const float* X_in;   // [M, 3] anchored start points Xr
+  // the problem, as ops/ba.BAProblem holds it
+  const float* T_cw;     // [K, 4, 4] world -> camera poses
+  const float* Xw;       // [M, 3] world points
+  const float* pts;      // [M, K, 2] left observations (px)
+  const float* pts_r;    // [M, K, 2] right observations
+  const bool* mask;      // [M, K]
+  const bool* mask_r;    // [M, K]
+  const bool* kf_valid;  // [K]
+  const bool* lm_valid;  // [M]
+  const float* T_rl;     // [4, 4]
   int M, K;
-  float fx, fy, cx, cy, huber_delta, lam, max_trans_update;
-  int iters;
+  float fx, fy, cx, cy, huber_delta, lam, max_trans_update, kill_dist;
+  int iters, n_fix, min_obs;
   int group;     // 1: the divergence count comes from the all-reduced system only
   int n_blocks;  // blocks of ba_terms and ba_backsub (<= kMaxBlocks)
+  // the result
+  float* T_out;  // [K, 4, 4] T_cw after the solve
+  float* X_out;  // [M, 3] Xw after the solve
+  bool* killed;  // [M]
   // state
   float* T;      // [K, 4, 4] current T_cr
-  float* X;      // [M, 3] current Xr
+  float* X;      // [M, 3] current Xr (read for active landmarks only)
   int* stop_at;  // [1] the iteration count at which the loop stops
+  bool* active;  // [M] lm_active
+  int* list;     // [M] the active slots in ascending order, the first *n_act of it
+  int* n_act;    // [1]
   // scratch
-  float* part;      // [n_blocks, n_part(K)] per-block partial sums
-  float* err_part;  // [2, n_blocks] error sums: before, after
-  float* sys;       // [n_sys(K)] S [K, K, 6, 6], s [K, 6], n_bad
+  float* part;      // [n_blocks, n_part(n_opt)] per-block partial sums
+  float* err_part;  // [2, n_blocks, 3] error sum, left and right rows: before, after
+  float* sys;       // [n_sys(n_opt)] S's lower block triangle, s, n_bad
   float* dx;        // [K, 6]
   float* T_new;     // [K, 4, 4] candidate poses
   int* dx_bad;      // [1]
-  float* dy;        // [M, 3]
+  float* dy;        // [M, 3] (written for active landmarks only)
   int* dy_bad;      // [n_blocks] active landmarks with a non-finite dy or block
 };
 
-// Layout of a block's partial sums: A [K, 6, 6], a [K, 6] (without the
-// minus), S_off [K, K, 6, 6], sb [K, 6], n_bad.
-PG_HD int off_a(int K) { return 36 * K; }
-PG_HD int off_S(int K) { return 42 * K; }
-PG_HD int off_sb(int K) { return 42 * K + 36 * K * K; }
-PG_HD int off_nb(int K) { return 48 * K + 36 * K * K; }
-PG_HD int n_part(int K) { return 48 * K + 36 * K * K + 1; }
-PG_HD int n_sys(int K) { return 36 * K * K + 6 * K + 1; }
+// Sizes over the n optimisable slots. The lower block triangle of S holds
+// the pairs (j, k), k <= j, in the order (0, 0), (1, 0), (1, 1), (2, 0) ...
+// A block's partial sums: A [n, 6, 6], a [n, 6] (without the minus), S_off
+// [pairs, 6, 6], sb [n, 6], n_bad. The system: S [pairs, 6, 6], s [n, 6],
+// n_bad.
+PG_HD int n_pairs(int n) { return n * (n + 1) / 2; }
+PG_HD int off_a(int n) { return 36 * n; }
+PG_HD int off_S(int n) { return 42 * n; }
+PG_HD int off_sb(int n) { return 42 * n + 36 * n_pairs(n); }
+PG_HD int off_nb(int n) { return 48 * n + 36 * n_pairs(n); }
+PG_HD int n_part(int n) { return 48 * n + 36 * n_pairs(n) + 1; }
+PG_HD int n_sys(int n) { return 36 * n_pairs(n) + 6 * n + 1; }
 
 // What ops/ba.py restates (its `_Args`, the sizes above, the modes and the
 // tile), for the check it makes when it binds a library (`ba_layout` of
 // ba_gn.cu and ba_gn_host.cpp): kMaxK, kTL, kMaxBlocks, the three modes, the
-// two phases, n_part(K), n_sys(K), sizeof(Args), then each field's offset in
+// two phases, n_part(n), n_sys(n), sizeof(Args), then each field's offset in
 // declaration order. Returns the count of ints; writes them if it is <= cap.
 #define BA_GN_OFFSET(f) (int)offsetof(Args, f),
-inline int layout(int K, int* out, int cap) {
-  const int v[] = {kMaxK, kTL, kMaxBlocks, kTerms, kErrInit, kErrFinal, kSum, kSolve, n_part(K), n_sys(K),
+inline int layout(int n, int* out, int cap) {
+  const int v[] = {kMaxK, kTL, kMaxBlocks, kTerms, kErrInit, kErrFinal, kSum, kSolve, n_part(n), n_sys(n),
                    (int)sizeof(Args),
-                   BA_GN_OFFSET(pts) BA_GN_OFFSET(pts_r) BA_GN_OFFSET(mask) BA_GN_OFFSET(mask_r)
-                   BA_GN_OFFSET(active) BA_GN_OFFSET(opt) BA_GN_OFFSET(T_rl) BA_GN_OFFSET(T_in) BA_GN_OFFSET(X_in)
+                   BA_GN_OFFSET(T_cw) BA_GN_OFFSET(Xw) BA_GN_OFFSET(pts) BA_GN_OFFSET(pts_r) BA_GN_OFFSET(mask)
+                   BA_GN_OFFSET(mask_r) BA_GN_OFFSET(kf_valid) BA_GN_OFFSET(lm_valid) BA_GN_OFFSET(T_rl)
                    BA_GN_OFFSET(M) BA_GN_OFFSET(K) BA_GN_OFFSET(fx) BA_GN_OFFSET(fy) BA_GN_OFFSET(cx)
                    BA_GN_OFFSET(cy) BA_GN_OFFSET(huber_delta) BA_GN_OFFSET(lam) BA_GN_OFFSET(max_trans_update)
-                   BA_GN_OFFSET(iters) BA_GN_OFFSET(group) BA_GN_OFFSET(n_blocks) BA_GN_OFFSET(T) BA_GN_OFFSET(X)
-                   BA_GN_OFFSET(stop_at) BA_GN_OFFSET(part) BA_GN_OFFSET(err_part) BA_GN_OFFSET(sys)
-                   BA_GN_OFFSET(dx) BA_GN_OFFSET(T_new) BA_GN_OFFSET(dx_bad) BA_GN_OFFSET(dy) BA_GN_OFFSET(dy_bad)};
-  const int n = (int)(sizeof(v) / sizeof(v[0]));
-  if (n <= cap)
-    for (int i = 0; i < n; ++i) out[i] = v[i];
-  return n;
+                   BA_GN_OFFSET(kill_dist) BA_GN_OFFSET(iters) BA_GN_OFFSET(n_fix) BA_GN_OFFSET(min_obs)
+                   BA_GN_OFFSET(group) BA_GN_OFFSET(n_blocks) BA_GN_OFFSET(T_out) BA_GN_OFFSET(X_out)
+                   BA_GN_OFFSET(killed) BA_GN_OFFSET(T) BA_GN_OFFSET(X) BA_GN_OFFSET(stop_at)
+                   BA_GN_OFFSET(active) BA_GN_OFFSET(list) BA_GN_OFFSET(n_act) BA_GN_OFFSET(part)
+                   BA_GN_OFFSET(err_part) BA_GN_OFFSET(sys) BA_GN_OFFSET(dx) BA_GN_OFFSET(T_new)
+                   BA_GN_OFFSET(dx_bad) BA_GN_OFFSET(dy) BA_GN_OFFSET(dy_bad)};
+  const int n_v = (int)(sizeof(v) / sizeof(v[0]));
+  if (n_v <= cap)
+    for (int i = 0; i < n_v; ++i) out[i] = v[i];
+  return n_v;
 }
 #undef BA_GN_OFFSET
 
-// Per-pair slots of a tile: B [6][3], BCinv [6][3], A's share [6][6], a's
-// share [6], C's share [3][3], b's share [3], the error term, the row flag.
-constexpr int kPairFloats = 18 + 18 + 36 + 6 + 9 + 3 + 1 + 1;
-// Shared memory of a ba_terms / ba_backsub block, in floats.
-PG_HD int tile_floats(int K) { return n_part(K) + kTL * K * kPairFloats + kTL * (9 + 3 + 1) + 1; }
+// The first n_fix slots are never optimisable, so a window of K slots has at
+// most this many: what the host sizes scratch by.
+PG_HD int max_opt(int K, int n_fix) { return K - n_fix > 0 ? K - n_fix : 0; }
 
-// A tile's shared memory, carved out of `base`.
+PG_HD bool opt_slot(const Args& a, int k) { return a.kf_valid[k] && k >= a.n_fix; }
+
+// The window's slots as the tile and solve launches read them, and the
+// landmark list's size (from the state the first launch wrote).
+struct Slots {
+  int n_opt, n_act, n_tiles;
+  int kf[kMaxK];             // kf_valid
+  int cidx[kMaxK];           // slot k's index among the optimisable slots, -1 if fixed
+  int slot[kMaxK];           // the c-th optimisable slot
+  int pj[kMaxPairs], pk[kMaxPairs];  // the lower block triangle's pairs (j, k)
+};
+
+template <class Blk>
+PG_HD void load_slots(const Args& a, Blk& b, Slots& s) {
+  if (b.tid == 0) {
+    int n = 0;
+    for (int k = 0; k < a.K; ++k) {
+      s.kf[k] = a.kf_valid[k];
+      s.cidx[k] = -1;
+      if (opt_slot(a, k)) {
+        s.cidx[k] = n;
+        s.slot[n++] = k;
+      }
+    }
+    s.n_opt = n;
+    for (int j = 0, p = 0; j < n; ++j)
+      for (int k = 0; k <= j; ++k, ++p) {
+        s.pj[p] = j;
+        s.pk[p] = k;
+      }
+    s.n_act = *a.n_act;
+    s.n_tiles = (s.n_act + kTL - 1) / kTL;
+  }
+  b.sync();
+}
+
+// Blocks of a tile launch that received a tile (the others return at once),
+// and so the partial sums and counts that the next launches add up.
+PG_HD int used_blocks(const Args& a, int n_act) {
+  const int n_tiles = (n_act + kTL - 1) / kTL;
+  return n_tiles < a.n_blocks ? n_tiles : a.n_blocks;
+}
+
+PG_HD int count_opt(const Args& a) {
+  int n = 0;
+  for (int k = 0; k < a.K; ++k) n += opt_slot(a, k);
+  return n;
+}
+
+// Per-pair slots of a tile, for every window slot: C's share [3][3], b's
+// share [3], the observed flag, B's finite flag; for every optimisable slot:
+// B [6][3], BCinv [6][3], A's share [6][6], a's share [6]; per landmark:
+// Cinv, b, the divergence flag.
+constexpr int kPairFloats = 9 + 3 + 1 + 1;
+constexpr int kOptPairFloats = 18 + 18 + 36 + 6;
+// Shared memory of a ba_terms / ba_backsub tile block, in floats, for K
+// slots of which at most n_opt are optimisable.
+PG_HD int tile_floats(int K, int n_opt) {
+  return n_part(n_opt) + kTL * K * kPairFloats + kTL * n_opt * kOptPairFloats + kTL * (9 + 3 + 1);
+}
+// ... and of an error launch: the anchored poses T_cr [K][16], T_rw, T_wr.
+PG_HD int err_floats(int K) { return 16 * K + 32; }
+
+// A tile's shared memory, carved out of `base` (q = l K + k indexes a pair,
+// o = l n_opt + c an optimisable one).
 struct Tile {
-  float *acc, *B, *BC, *Ac, *ac, *Cc, *bc, *ec, *Cinv, *b, *count;
-  int *obs, *bad;
-  PG_HD Tile(float* base, int K) {
-    const int p = kTL * K;
+  float *acc, *Cc, *bc, *B, *BC, *Ac, *ac, *Cinv, *b;
+  int *obs, *fin, *bad;
+  PG_HD Tile(float* base, int K, int n_opt) {
+    const int p = kTL * K, po = kTL * n_opt;
     acc = base;
-    B = acc + n_part(K);
-    BC = B + 18 * p;
-    Ac = BC + 18 * p;
-    ac = Ac + 36 * p;
-    Cc = ac + 6 * p;
+    Cc = acc + n_part(n_opt);
     bc = Cc + 9 * p;
-    ec = bc + 3 * p;
-    obs = (int*)(ec + p);
-    Cinv = (float*)(obs + p);
+    B = bc + 3 * p;
+    BC = B + 18 * po;
+    Ac = BC + 18 * po;
+    ac = Ac + 36 * po;
+    Cinv = ac + 6 * po;
     b = Cinv + 9 * kTL;
-    bad = (int*)(b + 3 * kTL);
-    count = (float*)(bad + kTL);
+    obs = (int*)(b + 3 * kTL);
+    fin = obs + p;
+    bad = fin + p;
   }
 };
+
+// sum_i a[i sa] b[i sb] over n terms in order, as the plain version's
+// matrix products (`@`, einsum) sum an inner dimension on each device: on
+// the card cuBLAS rounds the first product and fuses each later one into
+// the sum (fmaf); on the host this build rounds each product. Left to nvcc,
+// a*b + c*d would contract into fma(a, b, c*d), which rounds the other
+// product: the anchored start then differs from _anchor's in the last bit,
+// and the starting error by up to 2e-5 relative on the 200-frame leg.
+PG_HD float dot(const float* a, int sa, const float* b, int sb, int n) {
+  float s = a[0] * b[0];
+  for (int i = 1; i < n; ++i) {
+#ifdef __CUDA_ARCH__
+    s = fmaf(a[i * sa], b[i * sb], s);
+#else
+    s = s + a[i * sa] * b[i * sb];
+#endif
+  }
+  return s;
+}
+
+// a * b rounded on its own, as the plain version's elementwise products
+// are: on the card never contracted into an fma with the add that follows.
+PG_HD float mul_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+
+// utils/geometry.transform_points: Y = R X + t, the product summed first.
+PG_HD void transform(const float* T, const float* X, float* Y) {
+  for (int i = 0; i < 3; ++i) Y[i] = dot(T + 4 * i, 1, X, 1, 3) + T[4 * i + 3];
+}
 
 PG_HD float inv_depth(float z) { return 1.0f / (fabsf(z) < 1e-6f ? 1e-6f : z); }
 
@@ -164,15 +301,16 @@ PG_HD void pair_rows(const Args& a, const float* T, const float* X, int m, int k
   const float* Tk = T + 16 * k;
   const float* Xm = X + 3 * m;
   float Xc[3];
-  for (int i = 0; i < 3; ++i) Xc[i] = (Tk[4 * i] * Xm[0] + Tk[4 * i + 1] * Xm[1] + Tk[4 * i + 2] * Xm[2]) + Tk[4 * i + 3];
+  transform(Tk, Xm, Xc);
   const float* p = a.pts + 2 * (m * a.K + k);
   o.n = 0;
   if (ml) {
     float iz = inv_depth(Xc[2]);
     float xiz = Xc[0] * iz, yiz = Xc[1] * iz;
-    float r0 = (xiz * a.fx + a.cx) - p[0], r1 = (yiz * a.fy + a.cy) - p[1];
-    if (err) *err = sqrtf(r0 * r0 + r1 * r1);
-    float rn = sqrtf((r0 * r0 + r1 * r1) + 1e-12f);
+    float r0 = (mul_rn(xiz, a.fx) + a.cx) - p[0], r1 = (mul_rn(yiz, a.fy) + a.cy) - p[1];
+    const float rr = mul_rn(r0, r0) + mul_rn(r1, r1);
+    if (err) *err = sqrtf(rr);
+    float rn = sqrtf(rr + 1e-12f);
     float w = huber(rn, a.huber_delta) * (Xc[2] > 0.05f ? 1.0f : 0.0f);
     const float qu[6] = {a.fx * iz, 0.0f, -a.fx * xiz * iz, -a.fx * xiz * yiz, a.fx * (1.0f + xiz * xiz), -a.fx * yiz};
     const float qv[6] = {0.0f, a.fy * iz, -a.fy * yiz * iz, -a.fy * (1.0f + yiz * yiz), a.fy * xiz * yiz, a.fy * xiz};
@@ -189,12 +327,12 @@ PG_HD void pair_rows(const Args& a, const float* T, const float* X, int m, int k
   if (mr) {
     const float* R = a.T_rl;
     float Xr[3];
-    for (int i = 0; i < 3; ++i) Xr[i] = (R[4 * i] * Xc[0] + R[4 * i + 1] * Xc[1] + R[4 * i + 2] * Xc[2]) + R[4 * i + 3];
+    transform(R, Xc, Xr);
     float izr = inv_depth(Xr[2]);
     float xn = Xr[0] * izr, yn = Xr[1] * izr;
     const float* pr = a.pts_r + 2 * (m * a.K + k);
-    float r2 = (xn * a.fx + a.cx) - pr[0], r3 = (yn * a.fy + a.cy) - pr[1];
-    float rn = sqrtf((r2 * r2 + r3 * r3) + 1e-12f);
+    float r2 = (mul_rn(xn, a.fx) + a.cx) - pr[0], r3 = (mul_rn(yn, a.fy) + a.cy) - pr[1];
+    float rn = sqrtf((mul_rn(r2, r2) + mul_rn(r3, r3)) + 1e-12f);
     float w = huber(rn, a.huber_delta) * (Xr[2] > 0.05f ? 1.0f : 0.0f);
     float su = a.fx * izr, sv = a.fy * izr;
     for (int row = 0; row < 2; ++row) {
@@ -212,18 +350,22 @@ PG_HD void pair_rows(const Args& a, const float* T, const float* X, int m, int k
   }
 }
 
-// assemble_normal_blocks for one pair: its shares of A, a (without the
-// minus), C, b (without the minus) and its B, into tile slot q.
-PG_HD void pair_blocks(const Rows& o, Tile& t, int q, bool with_A) {
-  float* B = t.B + 18 * q;
+// assemble_normal_blocks for one pair: its shares of C and b (without the
+// minus) into pair slot q and whether its B is finite; for an optimisable
+// slot (o >= 0) also its B and, with_A, its shares of A and a (without the
+// minus) into slot o.
+PG_HD void pair_blocks(const Rows& o, Tile& t, int q, int opt, bool with_A) {
+  float B[18];
   float* Cc = t.Cc + 9 * q;
   float* bc = t.bc + 3 * q;
+  float* Ac = with_A && opt >= 0 ? t.Ac + 36 * opt : nullptr;
+  float* ac = with_A && opt >= 0 ? t.ac + 6 * opt : nullptr;
   for (int i = 0; i < 18; ++i) B[i] = 0.0f;
   for (int i = 0; i < 9; ++i) Cc[i] = 0.0f;
   for (int i = 0; i < 3; ++i) bc[i] = 0.0f;
-  if (with_A) {
-    for (int i = 0; i < 36; ++i) t.Ac[36 * q + i] = 0.0f;
-    for (int i = 0; i < 6; ++i) t.ac[6 * q + i] = 0.0f;
+  if (Ac) {
+    for (int i = 0; i < 36; ++i) Ac[i] = 0.0f;
+    for (int i = 0; i < 6; ++i) ac[i] = 0.0f;
   }
   for (int n = 0; n < o.n; ++n) {
     float wQ[6], wR[3];
@@ -235,13 +377,18 @@ PG_HD void pair_blocks(const Rows& o, Tile& t, int q, bool with_A) {
       for (int d = 0; d < 3; ++d) Cc[3 * c + d] += wR[c] * o.Rj[n][d];
       bc[c] += wR[c] * o.r[n];
     }
-    if (with_A) {
+    if (Ac) {
       for (int c = 0; c < 6; ++c) {
-        for (int d = 0; d < 6; ++d) t.Ac[36 * q + 6 * c + d] += wQ[c] * o.Q[n][d];
-        t.ac[6 * q + c] += wQ[c] * o.r[n];
+        for (int d = 0; d < 6; ++d) Ac[6 * c + d] += wQ[c] * o.Q[n][d];
+        ac[c] += wQ[c] * o.r[n];
       }
     }
   }
+  bool fin = true;
+  for (int i = 0; i < 18; ++i) fin = fin && isfinite(B[i]);
+  t.fin[q] = fin;
+  if (opt >= 0)
+    for (int i = 0; i < 18; ++i) t.B[18 * opt + i] = B[i];
 }
 
 // ops/ba._inv3x3: the adjugate over the determinant, clamped to +-1e-12.
@@ -262,34 +409,34 @@ PG_HD bool finite_n(const float* v, int n) {
   return f;
 }
 
-// The landmark blocks of one tile (landmarks c0 .. c0 + kTL - 1) at the
-// current state: every pair's rows and blocks, then per landmark C, b
+// The landmark blocks of the tile of list positions p0 .. p0 + kTL - 1 at
+// the current state: every pair's rows and blocks, then per landmark C, b
 // (damped, summed over its keyframes in order), Cinv and the divergence
 // flag; with_A also A's and a's shares and BCinv. Ends on a barrier.
 template <class Blk>
-PG_HD void tile_blocks(const Args& a, Blk& b, Tile& t, int c0, bool with_A) {
-  const int K = a.K;
+PG_HD void tile_blocks(const Args& a, Blk& b, const Slots& s, Tile& t, int p0, bool with_A) {
+  const int K = a.K, no = s.n_opt;
   for (int q = b.tid; q < kTL * K; q += b.nthr) {
-    int l = q / K, k = q % K, m = c0 + l;
-    bool ml = m < a.M && a.mask[m * K + k], mr = m < a.M && a.mask_r[m * K + k];
+    const int l = q / K, k = q % K;
+    const int m = p0 + l < s.n_act ? a.list[p0 + l] : -1;
+    const bool ml = m >= 0 && s.kf[k] && a.mask[m * K + k], mr = m >= 0 && s.kf[k] && a.mask_r[m * K + k];
     t.obs[q] = ml || mr;
     if (ml || mr) {
       Rows o;
       pair_rows(a, a.T, a.X, m, k, ml, mr, o, nullptr);
-      pair_blocks(o, t, q, with_A);
+      pair_blocks(o, t, q, s.cidx[k] < 0 ? -1 : l * no + s.cidx[k], with_A);
     }
   }
   b.sync();
   for (int l = b.tid; l < kTL; l += b.nthr) {
-    int m = c0 + l;
     float C[9] = {0.0f}, bs[3] = {0.0f};
     bool finite_B = true;
     for (int k = 0; k < K; ++k) {
-      int q = l * K + k;
+      const int q = l * K + k;
       if (!t.obs[q]) continue;
       for (int i = 0; i < 9; ++i) C[i] += t.Cc[9 * q + i];
       for (int i = 0; i < 3; ++i) bs[i] += t.bc[3 * q + i];
-      finite_B = finite_B && finite_n(t.B + 18 * q, 18);
+      finite_B = finite_B && t.fin[q];
     }
     for (int i = 0; i < 3; ++i) {
       for (int j = 0; j < 3; ++j) {
@@ -300,290 +447,482 @@ PG_HD void tile_blocks(const Args& a, Blk& b, Tile& t, int c0, bool with_A) {
       t.b[3 * l + i] = -bs[i];
     }
     inv3x3(C, t.Cinv + 9 * l);
-    bool act = m < a.M && a.active[m];
-    t.bad[l] = act && !(finite_n(t.Cinv + 9 * l, 9) && finite_n(t.b + 3 * l, 3) && finite_B);
+    t.bad[l] = p0 + l < s.n_act && !(finite_n(t.Cinv + 9 * l, 9) && finite_n(t.b + 3 * l, 3) && finite_B);
   }
   b.sync();
   if (with_A) {
-    for (int q = b.tid; q < kTL * K; q += b.nthr) {
-      if (!t.obs[q]) continue;
-      const float* B = t.B + 18 * q;
-      const float* Ci = t.Cinv + 9 * (q / K);
+    for (int o = b.tid; o < kTL * no; o += b.nthr) {
+      const int l = o / no;
+      if (!t.obs[l * K + s.slot[o % no]]) continue;
+      const float* B = t.B + 18 * o;
+      const float* Ci = t.Cinv + 9 * l;
       for (int c = 0; c < 6; ++c)
         for (int d = 0; d < 3; ++d)
-          t.BC[18 * q + 3 * c + d] = (B[3 * c] * Ci[d] + B[3 * c + 1] * Ci[3 + d]) + B[3 * c + 2] * Ci[6 + d];
+          t.BC[18 * o + 3 * c + d] = (B[3 * c] * Ci[d] + B[3 * c + 1] * Ci[3 + d]) + B[3 * c + 2] * Ci[6 + d];
     }
     b.sync();
   }
 }
 
-// Adds one tile's share to the block's partial sums; thread tid owns the
-// entries tid, tid + nthr, ... and sums over the tile's landmarks in order.
+// Adds one tile's share to the block's partial sums over the optimisable
+// slots; thread tid owns the entries tid, tid + nthr, ... and sums over the
+// tile's landmarks in order.
 template <class Blk>
-PG_HD void tile_accumulate(const Args& a, Blk& b, Tile& t) {
-  const int K = a.K, P = n_part(K);
+PG_HD void tile_accumulate(const Args& a, Blk& b, const Slots& s, Tile& t) {
+  const int K = a.K, no = s.n_opt, P = n_part(no);
   for (int e = b.tid; e < P; e += b.nthr) {
-    float s = t.acc[e];
-    if (e < off_a(K)) {  // A[k][c][d]
-      int k = e / 36, cd = e % 36;
+    float v = t.acc[e];
+    if (e < off_a(no)) {  // A[c][.][.]
+      const int c = e / 36, cd = e % 36, k = s.slot[c];
       for (int l = 0; l < kTL; ++l)
-        if (t.obs[l * K + k]) s += t.Ac[36 * (l * K + k) + cd];
-    } else if (e < off_S(K)) {  // a[k][c]
-      int k = (e - off_a(K)) / 6, c = (e - off_a(K)) % 6;
+        if (t.obs[l * K + k]) v += t.Ac[36 * (l * no + c) + cd];
+    } else if (e < off_S(no)) {  // a[c][i]
+      const int f = e - off_a(no), c = f / 6, k = s.slot[c];
       for (int l = 0; l < kTL; ++l)
-        if (t.obs[l * K + k]) s += t.ac[6 * (l * K + k) + c];
-    } else if (e < off_sb(K)) {  // S_off[j][k][c][d] = sum_m BCinv_mj[c] . B_mk[d]
-      int f = e - off_S(K), blk = f / 36, j = blk / K, k = blk % K, c = (f % 36) / 6, d = f % 6;
+        if (t.obs[l * K + k]) v += t.ac[6 * (l * no + c) + f % 6];
+    } else if (e < off_sb(no)) {  // S_off[j][k][r][d] = sum_m BCinv_mj[r] . B_mk[d], k <= j
+      const int f = e - off_S(no), pb = f / 36, r = (f % 36) / 6, d = f % 6;
+      const int j = s.pj[pb], k = s.pk[pb], sj = s.slot[j], sk = s.slot[k];
       for (int l = 0; l < kTL; ++l) {
-        int qj = l * K + j, qk = l * K + k;
-        if (!(t.obs[qj] && t.obs[qk])) continue;
-        const float* x = t.BC + 18 * qj + 3 * c;
-        const float* y = t.B + 18 * qk + 3 * d;
-        s += (x[0] * y[0] + x[1] * y[1]) + x[2] * y[2];
+        if (!(t.obs[l * K + sj] && t.obs[l * K + sk])) continue;
+        const float* x = t.BC + 18 * (l * no + j) + 3 * r;
+        const float* y = t.B + 18 * (l * no + k) + 3 * d;
+        v += (x[0] * y[0] + x[1] * y[1]) + x[2] * y[2];
       }
-    } else if (e < off_nb(K)) {  // sb[j][c] = sum_m BCinv_mj[c] . b_m
-      int j = (e - off_sb(K)) / 6, c = (e - off_sb(K)) % 6;
+    } else if (e < off_nb(no)) {  // sb[c][r] = sum_m BCinv_mc[r] . b_m
+      const int f = e - off_sb(no), c = f / 6, r = f % 6, k = s.slot[c];
       for (int l = 0; l < kTL; ++l) {
-        int q = l * K + j;
-        if (!t.obs[q]) continue;
-        const float* x = t.BC + 18 * q + 3 * c;
+        if (!t.obs[l * K + k]) continue;
+        const float* x = t.BC + 18 * (l * no + c) + 3 * r;
         const float* y = t.b + 3 * l;
-        s += (x[0] * y[0] + x[1] * y[1]) + x[2] * y[2];
+        v += (x[0] * y[0] + x[1] * y[1]) + x[2] * y[2];
       }
     } else {  // n_bad
-      for (int l = 0; l < kTL; ++l) s += t.bad[l] ? 1.0f : 0.0f;
+      for (int l = 0; l < kTL; ++l) v += t.bad[l] ? 1.0f : 0.0f;
     }
-    t.acc[e] = s;
+    t.acc[e] = v;
   }
 }
 
-// ba_terms: one block's tiles, tile index bid, bid + nblk, ... In kTerms the
-// block's partial sums of the reduced system; in kErrInit / kErrFinal the
-// masked left-row error sum (ops/ba.py's err_sums) of the start or the
-// current state, kErrInit also copying the start into the state.
+// ba_terms(kTerms): the block's tiles of the landmark list, tile index bid,
+// bid + nblk, ..., summed into its partials of the reduced system.
 template <class Blk>
-PG_HD void terms_block(const Args& a, Blk& b, float* smem, int it, int mode) {
-  if (mode == kTerms && it >= *a.stop_at) return;
-  const int K = a.K;
-  Tile t(smem, K);
-  if (mode != kTerms) {
-    const bool init = mode == kErrInit;
-    const float* T = init ? a.T_in : a.T;
-    const float* X = init ? a.X_in : a.X;
-    if (init && b.bid == 0) {
-      for (int i = b.tid; i < 16 * K; i += b.nthr) a.T[i] = a.T_in[i];
-      if (b.tid == 0) *a.stop_at = a.iters;
-    }
-    if (b.tid == 0) *t.count = 0.0f;
-    for (int c0 = kTL * b.bid; c0 < a.M; c0 += kTL * b.nblk) {
-      b.sync();
-      for (int q = b.tid; q < kTL * K; q += b.nthr) {
-        int l = q / K, k = q % K, m = c0 + l;
-        bool ml = m < a.M && a.mask[m * K + k];
-        t.obs[q] = ml;
-        if (ml) {
-          Rows o;
-          pair_rows(a, T, X, m, k, true, false, o, t.ec + q);
-        }
-        if (init && k == 0 && m < a.M)
-          for (int i = 0; i < 3; ++i) a.X[3 * m + i] = a.X_in[3 * m + i];
-      }
-      b.sync();
-      if (b.tid == 0) {
-        float s = *t.count;
-        for (int q = 0; q < kTL * K; ++q)
-          if (t.obs[q]) s += t.ec[q];
-        *t.count = s;
-      }
-    }
-    b.sync();
-    if (b.tid == 0) a.err_part[(init ? 0 : a.n_blocks) + b.bid] = *t.count;
-    return;
-  }
-  const int P = n_part(K);
+PG_HD void terms_block(const Args& a, Blk& b, Slots& s, float* smem, int it) {
+  if (it >= *a.stop_at) return;
+  load_slots(a, b, s);
+  if (b.bid >= s.n_tiles) return;
+  const int no = s.n_opt, P = n_part(no);
+  Tile t(smem, a.K, no);
   for (int e = b.tid; e < P; e += b.nthr) t.acc[e] = 0.0f;
-  for (int c0 = kTL * b.bid; c0 < a.M; c0 += kTL * b.nblk) {
+  for (int tile = b.bid; tile < s.n_tiles; tile += b.nblk) {
     b.sync();  // the previous tile's sums are taken
-    tile_blocks(a, b, t, c0, true);
-    tile_accumulate(a, b, t);
+    tile_blocks(a, b, s, t, kTL * tile, true);
+    tile_accumulate(a, b, s, t);
   }
   b.sync();
   for (int e = b.tid; e < P; e += b.nthr) a.part[(size_t)b.bid * P + e] = t.acc[e];
 }
 
-// ba_backsub: dy = Cinv (b - sum_k B_k^T dx_k) for the block's active
-// landmarks (0 for the others), and the count of active landmarks whose
-// blocks or dy are not finite.
-template <class Blk>
-PG_HD void backsub_block(const Args& a, Blk& b, float* smem, int it) {
-  if (it >= *a.stop_at) return;
-  const int K = a.K;
-  Tile t(smem, K);
-  if (b.tid == 0) *t.count = 0.0f;
-  for (int c0 = kTL * b.bid; c0 < a.M; c0 += kTL * b.nblk) {
-    b.sync();
-    tile_blocks(a, b, t, c0, false);
-    for (int l = b.tid; l < kTL; l += b.nthr) {
-      int m = c0 + l;
-      if (m >= a.M) continue;
-      float dy[3] = {0.0f, 0.0f, 0.0f};
-      if (a.active[m]) {
-        float rhs[3];
-        for (int c = 0; c < 3; ++c) {
-          float s = 0.0f;
-          for (int k = 0; k < K; ++k) {
-            int q = l * K + k;
-            if (!t.obs[q]) continue;
-            for (int r = 0; r < 6; ++r) s += t.B[18 * q + 3 * r + c] * a.dx[6 * k + r];
-          }
-          rhs[c] = t.b[3 * l + c] - s;
-        }
-        const float* Ci = t.Cinv + 9 * l;
-        for (int i = 0; i < 3; ++i) dy[i] = (Ci[3 * i] * rhs[0] + Ci[3 * i + 1] * rhs[1]) + Ci[3 * i + 2] * rhs[2];
-        t.bad[l] = t.bad[l] || !finite_n(dy, 3);
+// 4 x 4 product C = A B, each entry a `dot` over the inner index.
+PG_HD void mat44(const float* A, const float* B, float* C) {
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) C[4 * i + j] = dot(A + 4 * i, 1, B + j, 4, 4);
+}
+
+// utils/geometry.se3_inverse: [R^T, -R^T t]. On the card the plain
+// version's product of a 3 x 3 and a 3 x 1 matrix sums each entry of R^T t
+// as fmaf(a1, b1, a0 b0) + a2 b2, not as `dot` (cuBLAS's route for that
+// shape on the H100; test_torch_cuda's bit-for-bit test holds it); on the
+// host as `dot`.
+PG_HD float dot3_mv(const float* a, int sa, const float* b, int sb) {
+#ifdef __CUDA_ARCH__
+  return fmaf(a[sa], b[sb], a[0] * b[0]) + mul_rn(a[2 * sa], b[2 * sb]);
+#else
+  return dot(a, sa, b, sb, 3);
+#endif
+}
+
+PG_HD void se3_inverse(const float* T, float* out) {
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) out[4 * i + j] = T[4 * j + i];
+    out[4 * i + 3] = -dot3_mv(T + i, 4, T + 3, 4);
+  }
+  out[12] = out[13] = out[14] = 0.0f;
+  out[15] = 1.0f;
+}
+
+// utils/geometry.se3_project: so3_project's two Newton steps of the polar
+// decomposition, R <- R (1.5 I - 0.5 R^T R), on the rotation block; the
+// translation as it is, the bottom row [0, 0, 0, 1].
+PG_HD void se3_project(float* T) {
+  float R[9];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) R[3 * i + j] = T[4 * i + j];
+  for (int step = 0; step < 2; ++step) {
+    float N[9], out[9];
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        float rtr = dot(R + i, 3, R + j, 3, 3);
+        N[3 * i + j] = (i == j ? 1.5f : 0.0f) - 0.5f * rtr;
       }
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) out[3 * i + j] = dot(R + 3 * i, 1, N + j, 3, 3);
+    for (int i = 0; i < 9; ++i) R[i] = out[i];
+  }
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) T[4 * i + j] = R[3 * i + j];
+  T[12] = T[13] = T[14] = 0.0f;
+  T[15] = 1.0f;
+}
+
+// Whether landmark m is active: valid and seen by at least min_obs live
+// keyframes of the window.
+PG_HD bool lm_active(const Args& a, int m) {
+  int n = 0;
+  for (int k = 0; k < a.K; ++k) n += a.kf_valid[k] && a.mask[m * a.K + k];
+  return a.lm_valid[m] && n >= a.min_obs;
+}
+
+// Block 0 of kErrInit: the active slots in ascending order into `list` and
+// their count into n_act. A thread takes a run of consecutive slots; a
+// block-wide prefix of the runs' counts places each run.
+template <class Blk>
+PG_HD void build_list(const Args& a, Blk& b) {
+  const int per = (a.M + b.nthr - 1) / b.nthr;
+  const int m0 = b.tid * per, m1 = m0 + per < a.M ? m0 + per : a.M;
+  int n = 0;
+  for (int m = m0; m < m1; ++m) n += lm_active(a, m);
+  int total;
+  int at = b.scan(n, &total);
+  for (int m = m0; m < m1; ++m)
+    if (lm_active(a, m)) a.list[at++] = m;
+  if (b.tid == 0) *a.n_act = total;
+}
+
+// ba_terms(kErrInit / kErrFinal), a thread per landmark slot m = bid nthr +
+// tid, ...: the masked left-row error sum and the left and right row counts
+// (ops/ba.py's err_sums) at the anchored start or the current state.
+// kErrInit also anchors (ops/ba._anchor: lm_active, T_cr = T_cw T_wr with
+// T_wr = se3_inverse(T_cw[0]), Xr = T_rw Xw), stores the start as the state
+// and, in block 0, lists the active landmarks and sets stop_at = iters.
+// kErrFinal also writes back (ops/ba._write_back): T_cw = se3_project(T_cr
+// T_rw) on the optimisable slots, Xw = T_wr Xr and the kill rule on the
+// active landmarks, everything else copied from the input.
+template <class Blk>
+PG_HD void err_block(const Args& a, Blk& b, float* smem, int mode) {
+  const bool init = mode == kErrInit;
+  const int K = a.K;
+  float* Tcr = smem;  // [K][16]
+  float* Trw = smem + 16 * K;
+  float* Twr = Trw + 16;
+  if (b.tid == 0) {
+    pose_gn::copy16(a.T_cw, Trw);
+    se3_inverse(Trw, Twr);
+  }
+  b.sync();
+  if (init) {
+    for (int k = b.tid; k < K; k += b.nthr) mat44(a.T_cw + 16 * k, Twr, Tcr + 16 * k);
+    b.sync();
+    if (b.bid == 0) {
+      for (int i = b.tid; i < 16 * K; i += b.nthr) a.T[i] = Tcr[i];
+      if (b.tid == 0) *a.stop_at = a.iters;
+      build_list(a, b);
+    }
+  } else if (b.bid == 0) {
+    for (int k = b.tid; k < K; k += b.nthr) {
+      float Tk[16];
+      if (opt_slot(a, k)) {
+        mat44(a.T + 16 * k, Trw, Tk);
+        se3_project(Tk);
+      } else {
+        pose_gn::copy16(a.T_cw + 16 * k, Tk);
+      }
+      pose_gn::copy16(Tk, a.T_out + 16 * k);
+    }
+  }
+  const float* T = init ? Tcr : a.T;
+  float err = 0.0f, n_l = 0.0f, n_r = 0.0f;
+  for (int m = b.bid * b.nthr + b.tid; m < a.M; m += b.nthr * b.nblk) {
+    const float* Xm = a.X + 3 * m;
+    bool act;
+    if (init) {
+      act = lm_active(a, m);
+      a.active[m] = act;
+      transform(Trw, a.Xw + 3 * m, a.X + 3 * m);
+    } else {
+      act = a.active[m];
+    }
+    if (act) {
+      for (int k = 0; k < K; ++k) {
+        if (!a.kf_valid[k]) continue;
+        if (a.mask[m * K + k]) {
+          Rows o;
+          float e;
+          pair_rows(a, T, a.X, m, k, true, false, o, &e);
+          err += e;
+          n_l += 1.0f;
+        }
+        n_r += a.mask_r[m * K + k] ? 1.0f : 0.0f;
+      }
+    }
+    if (!init) {
+      float out[3];
+      if (act)
+        transform(Twr, Xm, out);
+      else
+        for (int i = 0; i < 3; ++i) out[i] = a.Xw[3 * m + i];
+      for (int i = 0; i < 3; ++i) a.X_out[3 * m + i] = out[i];
+      a.killed[m] = act && sqrtf(Xm[0] * Xm[0] + Xm[1] * Xm[1] + Xm[2] * Xm[2]) > a.kill_dist;
+    }
+  }
+  err = b.sum(err);
+  n_l = b.sum(n_l);
+  n_r = b.sum(n_r);
+  if (b.tid == 0) {
+    float* out = a.err_part + 3 * ((init ? 0 : a.n_blocks) + b.bid);
+    out[0] = err;
+    out[1] = n_l;
+    out[2] = n_r;
+  }
+}
+
+// ba_backsub: dy = Cinv (b - sum_k B_k^T dx_k) over the optimisable slots
+// (dx is an exact 0 on the others) for the block's tiles of listed
+// landmarks, and the count of those whose blocks or dy are not finite.
+template <class Blk>
+PG_HD void backsub_block(const Args& a, Blk& b, Slots& s, float* smem, int it) {
+  if (it >= *a.stop_at) return;
+  load_slots(a, b, s);
+  if (b.bid >= s.n_tiles) return;
+  const int K = a.K, no = s.n_opt;
+  Tile t(smem, K, no);
+  int count = 0;
+  for (int tile = b.bid; tile < s.n_tiles; tile += b.nblk) {
+    const int p0 = kTL * tile;
+    b.sync();
+    tile_blocks(a, b, s, t, p0, false);
+    for (int l = b.tid; l < kTL; l += b.nthr) {
+      if (p0 + l >= s.n_act) continue;
+      const int m = a.list[p0 + l];
+      float rhs[3], dy[3];
+      for (int c = 0; c < 3; ++c) {
+        float acc = 0.0f;
+        for (int o = 0; o < no; ++o) {
+          const int k = s.slot[o];
+          if (!t.obs[l * K + k]) continue;
+          for (int r = 0; r < 6; ++r) acc += t.B[18 * (l * no + o) + 3 * r + c] * a.dx[6 * k + r];
+        }
+        rhs[c] = t.b[3 * l + c] - acc;
+      }
+      const float* Ci = t.Cinv + 9 * l;
+      for (int i = 0; i < 3; ++i) dy[i] = (Ci[3 * i] * rhs[0] + Ci[3 * i + 1] * rhs[1]) + Ci[3 * i + 2] * rhs[2];
+      t.bad[l] = t.bad[l] || !finite_n(dy, 3);
       for (int i = 0; i < 3; ++i) a.dy[3 * m + i] = dy[i];
     }
     b.sync();
-    if (b.tid == 0) {
-      float s = *t.count;
-      for (int l = 0; l < kTL; ++l) s += t.bad[l] ? 1.0f : 0.0f;
-      *t.count = s;
-    }
+    if (b.tid == 0)
+      for (int l = 0; l < kTL; ++l) count += t.bad[l] ? 1 : 0;
   }
-  b.sync();
-  if (b.tid == 0) a.dy_bad[b.bid] = (int)*t.count;
+  if (b.tid == 0) a.dy_bad[b.bid] = count;
 }
 
 // What ba_solve keeps in shared memory.
 struct SolveShared {
-  float H[kMaxN * kMaxN];  // the equilibrated system, then its Cholesky factor (lower)
+  Slots s;
+  float H[kMaxN * kMaxN];  // the equilibrated system's lower triangle, then its Cholesky factor
   float z[kMaxN], y[kMaxN], dinv[kMaxN], ld[kMaxN];
+  int fail;
+  int bad[kMaxK];
 };
 
-// ba_solve: kSum sums the partials in block order into sys = (S, s, n_bad)
-// (schur_reduce's damping and assembly); kSolve solves sys (solve_reduced)
-// and takes the candidate step: dx, the dx guard (non-finite, or a
-// translation above max_trans_update) and T_new = add_front_se3(T, dx) on
-// the optimisable poses.
+// The threads that factor and solve the system: the first warp when the
+// system has at most 32 unknowns (lanes own rows, __syncwarp between steps,
+// no block barrier), else the whole block.
+template <class Blk>
+struct Team {
+  Blk& b;
+  bool warp;
+  int tid, nthr;
+  PG_HD void sync() {
+    if (warp)
+      b.warp_sync();
+    else
+      b.sync();
+  }
+};
+
+// solve_reduced's Cholesky and triangular solves on the n x n equilibrated
+// system (n = 6 n_opt) in sh.H (lower triangle) and sh.z, by 6 x 6 keyframe
+// blocks. Per block column, the first warp of the team takes its six
+// columns over every row below the diagonal (lanes own rows; per column the
+// pivot, the division, the update of the block's later columns, a
+// __syncwarp after each), then the team updates the trailing triangle
+// entry by entry; one barrier of the team after each. The triangular solves
+// are the first warp's alone, a column per __syncwarp. Every entry receives
+// the right-looking scalar algorithm's operations in its order, so the
+// factor and x are those of a column-by-column Cholesky. A pivot that is not
+// > 0 (NaN included) fails it, as cholesky_ex's info != 0 (sh.fail). x ends
+// in sh.z.
+template <class Team>
+PG_HD void chol_solve(Team& t, SolveShared& sh, int n) {
+  float* H = sh.H;
+  const int nlane = t.nthr < 32 ? t.nthr : 32;
+  const bool lane = t.tid < nlane;  // a thread of the first warp
+  for (int J = 0; J < n; J += 6) {
+    if (lane) {
+      for (int j = J; j < J + 6; ++j) {
+        const float d = H[j * n + j];
+        if (!(d > 0.0f)) {
+          if (t.tid == 0) sh.fail = 1;
+          break;
+        }
+        const float l = sqrtf(d);
+        if (t.tid == 0) sh.ld[j] = l;
+        for (int i = j + 1 + t.tid; i < n; i += nlane) H[i * n + j] = H[i * n + j] / l;
+        t.b.warp_sync();
+        for (int i = j + 1 + t.tid; i < n; i += nlane)
+          for (int c = j + 1; c < J + 6 && c <= i; ++c) H[i * n + c] -= H[i * n + j] * H[c * n + j];
+        t.b.warp_sync();
+      }
+    }
+    t.sync();
+    if (sh.fail) return;
+    const int r0 = J + 6, w = n - r0;
+    for (int p = t.tid; p < w * w; p += t.nthr) {
+      const int i = r0 + p / w, c = r0 + p % w;
+      if (c > i) continue;
+      float h = H[i * n + c];
+      for (int j = J; j < J + 6; ++j) h -= H[i * n + j] * H[c * n + j];
+      H[i * n + c] = h;
+    }
+    t.sync();
+  }
+  if (!lane) return;
+  for (int j = 0; j < n; ++j) {  // L y = z
+    const float yj = sh.z[j] / sh.ld[j];
+    if (t.tid == 0) sh.y[j] = yj;
+    for (int i = j + 1 + t.tid; i < n; i += nlane) sh.z[i] -= H[i * n + j] * yj;
+    t.b.warp_sync();
+  }
+  for (int j = n - 1; j >= 0; --j) {  // L^T x = y, x into z
+    const float xj = sh.y[j] / sh.ld[j];
+    if (t.tid == 0) sh.z[j] = xj;
+    for (int i = t.tid; i < j; i += nlane) sh.y[i] -= H[j * n + i] * xj;
+    t.b.warp_sync();
+  }
+}
+
+// The sum over G blocks' partials p[0], p[stride], ... in block order, 16
+// loads in flight.
+PG_HD float sum_blocks(const float* p, int stride, int G) {
+  constexpr int kInFlight = 16;
+  float s = 0.0f;
+  int g = 0;
+  for (; g + kInFlight <= G; g += kInFlight) {
+    float v[kInFlight];
+    for (int u = 0; u < kInFlight; ++u) v[u] = p[(size_t)(g + u) * stride];
+    for (int u = 0; u < kInFlight; ++u) s += v[u];
+  }
+  for (; g < G; ++g) s += p[(size_t)g * stride];
+  return s;
+}
+
+// ba_solve: kSum sums the used blocks' partials in block order into sys =
+// (S, s, n_bad) over the optimisable slots (schur_reduce's damping and
+// assembly); kSolve solves sys (solve_reduced) and takes the candidate step:
+// dx, the dx guard (non-finite, or a translation above max_trans_update) and
+// T_new = add_front_se3(T, dx) on the optimisable poses.
 template <class Blk>
 PG_HD void solve_block(const Args& a, Blk& b, SolveShared& sh, int it, int phase) {
   if (it >= *a.stop_at) return;
-  const int K = a.K, n = 6 * K, P = n_part(K), G = a.n_blocks;
+  Slots& s = sh.s;
+  load_slots(a, b, s);
+  const int K = a.K, no = s.n_opt, n = 6 * no, np = n_pairs(no);
   if (phase & kSum) {
-    for (int e = b.tid; e < n_sys(K); e += b.nthr) {
+    const int P = n_part(no), G = used_blocks(a, s.n_act);
+    for (int e = b.tid; e < n_sys(no); e += b.nthr) {
       float v;
-      if (e < 36 * K * K) {  // S[j][k][c][d] = -S_off + [j == k] (A + lam A I)
-        int blk = e / 36, j = blk / K, k = blk % K, cd = e % 36;
-        float so = 0.0f;
-        for (int g = 0; g < G; ++g) so += a.part[(size_t)g * P + off_S(K) + e];
-        v = -so;
-        if (j == k) {
-          float A = 0.0f;
-          for (int g = 0; g < G; ++g) A += a.part[(size_t)g * P + 36 * j + cd];
+      if (e < 36 * np) {  // S[j][k] = -S_off + [j == k] (A + lam A I)
+        const int pb = e / 36, cd = e % 36;
+        v = -sum_blocks(a.part + off_S(no) + e, P, G);
+        if (s.pj[pb] == s.pk[pb]) {
+          const float A = sum_blocks(a.part + 36 * s.pj[pb] + cd, P, G);
           v = v + (A + (a.lam * A) * (cd / 6 == cd % 6 ? 1.0f : 0.0f));
         }
-      } else if (e < 36 * K * K + 6 * K) {  // s = a - sb
-        int f = e - 36 * K * K;
-        float av = 0.0f, sb = 0.0f;
-        for (int g = 0; g < G; ++g) av += a.part[(size_t)g * P + off_a(K) + f];
-        for (int g = 0; g < G; ++g) sb += a.part[(size_t)g * P + off_sb(K) + f];
+      } else if (e < 36 * np + 6 * no) {  // s = a - sb
+        const int f = e - 36 * np;
+        const float av = sum_blocks(a.part + off_a(no) + f, P, G), sb = sum_blocks(a.part + off_sb(no) + f, P, G);
         v = -av - sb;
       } else {
-        v = 0.0f;
-        for (int g = 0; g < G; ++g) v += a.part[(size_t)g * P + off_nb(K)];
+        v = sum_blocks(a.part + off_nb(no), P, G);
       }
       a.sys[e] = v;
     }
     b.sync();
   }
   if (!(phase & kSolve)) return;
-  // solve_reduced: gate the fixed and empty slots, unit diagonal there.
+  // solve_reduced over the optimisable slots: Jacobi equilibration, + 1e-7 I.
   for (int e = b.tid; e < n * n; e += b.nthr) {
-    int i = e / n, c = e % n, j = i / 6, k = c / 6;
-    float oj = a.opt[j] ? 1.0f : 0.0f, ok = a.opt[k] ? 1.0f : 0.0f;
-    float v = a.sys[((j * K + k) * 6 + i % 6) * 6 + c % 6] * (oj * ok);
-    v = (v * oj) * ok;
-    if (i == c) v = v + (1.0f - oj);
-    sh.H[e] = v;
+    const int i = e / n, c = e % n, j = i / 6, k = c / 6;
+    if (c <= i) sh.H[e] = a.sys[36 * (j * (j + 1) / 2 + k) + 6 * (i % 6) + c % 6];
   }
+  if (b.tid == 0) sh.fail = 0;
   b.sync();
   for (int i = b.tid; i < n; i += b.nthr) {
-    float d = sh.H[i * n + i];
+    const float d = sh.H[i * n + i];
     sh.dinv[i] = 1.0f / sqrtf(d < 1e-12f ? 1e-12f : d);
   }
   b.sync();
   for (int e = b.tid; e < n * n; e += b.nthr) {
-    int i = e / n, c = e % n;
-    sh.H[e] = (sh.H[e] * sh.dinv[i]) * sh.dinv[c] + (i == c ? 1e-7f : 0.0f);
+    const int i = e / n, c = e % n;
+    if (c <= i) sh.H[e] = (sh.H[e] * sh.dinv[i]) * sh.dinv[c] + (i == c ? 1e-7f : 0.0f);
   }
-  for (int i = b.tid; i < n; i += b.nthr) sh.z[i] = (a.sys[36 * K * K + i] * (a.opt[i / 6] ? 1.0f : 0.0f)) * sh.dinv[i];
+  for (int i = b.tid; i < n; i += b.nthr) sh.z[i] = a.sys[36 * np + i] * sh.dinv[i];
   b.sync();
-  // Cholesky, right-looking, lower triangle only; a pivot that is not > 0
-  // (NaN included) fails it, as cholesky_ex's info != 0, and the step is NaN.
-  bool fail = false;
-  for (int j = 0; j < n; ++j) {
-    float d = sh.H[j * n + j];
-    if (!(d > 0.0f)) {
-      fail = true;
-      break;
-    }
-    float l = sqrtf(d);
-    if (b.tid == 0) sh.ld[j] = l;
-    for (int i = j + 1 + b.tid; i < n; i += b.nthr) sh.H[i * n + j] = sh.H[i * n + j] / l;
-    b.sync();
-    const int w = n - j - 1;
-    for (int p = b.tid; p < w * w; p += b.nthr) {
-      int i = j + 1 + p / w, c = j + 1 + p % w;
-      if (c <= i) sh.H[i * n + c] -= sh.H[i * n + j] * sh.H[c * n + j];
-    }
-    b.sync();
+  const bool warp = n <= 32;
+  if (!warp || b.tid < 32) {
+    Team<Blk> t{b, warp, b.tid, warp && b.nthr > 32 ? 32 : b.nthr};
+    chol_solve(t, sh, n);
   }
-  if (!fail) {
-    for (int j = 0; j < n; ++j) {  // L y = z
-      float yj = sh.z[j] / sh.ld[j];
-      if (b.tid == 0) sh.y[j] = yj;
-      for (int i = j + 1 + b.tid; i < n; i += b.nthr) sh.z[i] -= sh.H[i * n + j] * yj;
-      b.sync();
-    }
-    for (int j = n - 1; j >= 0; --j) {  // L^T x = y, x into z
-      float xj = sh.y[j] / sh.ld[j];
-      if (b.tid == 0) sh.z[j] = xj;
-      for (int i = b.tid; i < j; i += b.nthr) sh.y[i] -= sh.H[j * n + i] * xj;
-      b.sync();
-    }
+  b.sync();
+  for (int k = b.tid; k < K; k += b.nthr) {
+    const int c = s.cidx[k];
+    float d[6];
+    for (int r = 0; r < 6; ++r) d[r] = c < 0 ? 0.0f : (sh.fail ? NAN : sh.z[6 * c + r]) * sh.dinv[6 * c + r];
+    for (int r = 0; r < 6; ++r) a.dx[6 * k + r] = d[r];
+    sh.bad[k] = !finite_n(d, 6) || sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) > a.max_trans_update;
+    float Tk[16];
+    pose_gn::copy16(a.T + 16 * k, Tk);
+    if (c >= 0) pose_gn::add_front_se3(d, Tk);
+    pose_gn::copy16(Tk, a.T_new + 16 * k);
   }
-  for (int i = b.tid; i < n; i += b.nthr)
-    a.dx[i] = ((fail ? NAN : sh.z[i]) * sh.dinv[i]) * (a.opt[i / 6] ? 1.0f : 0.0f);
   b.sync();
   if (b.tid == 0) {
-    bool bad = !finite_n(a.dx, n);
-    for (int k = 0; k < K; ++k) {
-      const float* d = a.dx + 6 * k;
-      bad = bad || sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) > a.max_trans_update;
-      float Tk[16];
-      pose_gn::copy16(a.T + 16 * k, Tk);
-      if (a.opt[k]) pose_gn::add_front_se3(d, Tk);
-      pose_gn::copy16(Tk, a.T_new + 16 * k);
-    }
+    bool bad = false;
+    for (int k = 0; k < K; ++k) bad = bad || sh.bad[k];
     *a.dx_bad = bad;
   }
 }
 
-// ba_apply: the guard (the dx test, then the divergence counts summed in
-// block order: the all-reduced n_bad, and on one device also every tile's
-// non-finite dy), Xr += dy and T_cr = T_new unless bad, and the early stop:
-// done = bad or max |dx| < 1e-5 sets stop_at = it + 1, which the launches of
-// later iterations read (this launch's blocks compare it with it).
+// ba_apply, a thread per list position: the guard (the dx test, then the
+// divergence counts summed in block order: the all-reduced n_bad, and on one
+// device also every tile's non-finite dy), Xr += dy on the listed landmarks
+// and T_cr = T_new unless bad, and the early stop: done = bad or max |dx| <
+// 1e-5 sets stop_at = it + 1, which the launches of later iterations read
+// (this launch's blocks compare it with it).
 template <class Blk>
 PG_HD void apply_block(const Args& a, Blk& b, int it) {
   if (it >= *a.stop_at) return;
+  const int n_act = *a.n_act, G = used_blocks(a, n_act);
   int n_dy = 0;
-  for (int g = 0; g < a.n_blocks; ++g) n_dy += a.dy_bad[g];
-  bool dy_bad = a.sys[n_sys(a.K) - 1] > 0.0f || (!a.group && n_dy > 0);
-  bool bad = *a.dx_bad || dy_bad;
+  for (int g = 0; g < G; ++g) n_dy += a.dy_bad[g];
+  const bool dy_bad = a.sys[n_sys(count_opt(a)) - 1] > 0.0f || (!a.group && n_dy > 0);
+  const bool bad = *a.dx_bad || dy_bad;
   if (!bad)
-    for (int i = b.bid * b.nthr + b.tid; i < 3 * a.M; i += b.nthr * b.nblk) a.X[i] = a.X[i] + a.dy[i];
+    for (int p = b.bid * b.nthr + b.tid; p < n_act; p += b.nthr * b.nblk) {
+      const int m = a.list[p];
+      for (int i = 3 * m; i < 3 * m + 3; ++i) a.X[i] = a.X[i] + a.dy[i];
+    }
   if (b.bid == 0 && b.tid == 0) {
     float mx = 0.0f;
     if (!bad) {

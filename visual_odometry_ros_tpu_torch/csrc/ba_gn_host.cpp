@@ -1,12 +1,15 @@
 // The `ba_*` kernels' algorithm (ba_gn.cuh) as one host thread, for the CPU
 // tests: the same four launchers and `ba_layout`, under the same names and
 // arguments as ba_gn.cu's (the stream is ignored), each launcher running the
-// launch's blocks one after the other with one thread.
+// launch's blocks one after the other with one thread. A block's sum and
+// prefix over its one thread are the thread's own value and 0; the warp that
+// factors the reduced system is that thread too.
 // tests/test_torch_ba_gn.py builds it with g++ into build/kernels/ and runs
 // ops/ba.py's launch sequence on it.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libba_gn_host.so ba_gn_host.cpp
 
+#include <algorithm>
 #include <memory>
 #include <vector>
 
@@ -17,6 +20,12 @@ namespace {
 struct HostBlock {
   int tid = 0, nthr = 1, bid = 0, nblk = 1;
   void sync() {}
+  void warp_sync() {}
+  float sum(float v) { return v; }
+  int scan(int v, int* total) {
+    *total = v;
+    return 0;
+  }
 };
 
 template <class F>
@@ -34,8 +43,14 @@ void blocks(int n, F f) {
 extern "C" {
 
 int ba_terms_launch(const ba_gn::Args* a, int it, int mode, void*) {
-  std::vector<float> smem(ba_gn::tile_floats(a->K));
-  blocks(a->n_blocks, [&](HostBlock& b) { ba_gn::terms_block(*a, b, smem.data(), it, mode); });
+  std::vector<float> smem(std::max(ba_gn::tile_floats(a->K, ba_gn::max_opt(a->K, a->n_fix)), ba_gn::err_floats(a->K)));
+  ba_gn::Slots s;
+  blocks(a->n_blocks, [&](HostBlock& b) {
+    if (mode == ba_gn::kTerms)
+      ba_gn::terms_block(*a, b, s, smem.data(), it);
+    else
+      ba_gn::err_block(*a, b, smem.data(), mode);
+  });
   return 0;
 }
 
@@ -46,8 +61,9 @@ int ba_solve_launch(const ba_gn::Args* a, int it, int phase, void*) {
 }
 
 int ba_backsub_launch(const ba_gn::Args* a, int it, void*) {
-  std::vector<float> smem(ba_gn::tile_floats(a->K));
-  blocks(a->n_blocks, [&](HostBlock& b) { ba_gn::backsub_block(*a, b, smem.data(), it); });
+  std::vector<float> smem(ba_gn::tile_floats(a->K, ba_gn::max_opt(a->K, a->n_fix)));
+  ba_gn::Slots s;
+  blocks(a->n_blocks, [&](HostBlock& b) { ba_gn::backsub_block(*a, b, s, smem.data(), it); });
   return 0;
 }
 
@@ -56,6 +72,6 @@ int ba_apply_launch(const ba_gn::Args* a, int it, void*) {
   return 0;
 }
 
-int ba_layout(int K, int* out, int cap) { return ba_gn::layout(K, out, cap); }
+int ba_layout(int n, int* out, int cap) { return ba_gn::layout(n, out, cap); }
 
 }  // extern "C"

@@ -10,13 +10,14 @@ the sums that cross landmarks are all-reduced over the group
 (`parallel/dist_ba.py`).
 
 The reference runs its GN loop as a `lax.while_loop` on the device. Here,
-on CUDA tensors, the loop is the hand-written kernels `ba_terms`,
+on CUDA tensors, the solve is the hand-written kernels `ba_terms`,
 `ba_solve`, `ba_backsub` and `ba_apply` (csrc/ba_gn.cu, algorithm in
-csrc/ba_gn.cuh): a single-device solve enqueues `launches_per_solve(iters)`
-launches and reads nothing back; iterations after the stop are no-ops on
-the device. The plain PyTorch version, `ba_solve_ref`, defines the
-semantics and is the CPU route; `ba_solve_impl` runs it on CPU tensors and
-the kernels on CUDA tensors, or raises. Nothing falls back.
+csrc/ba_gn.cuh), the anchoring and the write-back included: a single-device
+solve enqueues `launches_per_solve(iters)` launches and reads nothing back;
+iterations after the stop are no-ops on the device. The plain PyTorch
+version, `ba_solve_ref`, defines the semantics and is the CPU route;
+`ba_solve_impl` runs it on CPU tensors and the kernels on CUDA tensors, or
+raises. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -199,11 +200,11 @@ def schur_reduce(A, a, C, b, B, lam):
     return S, a - sb.reshape(K, 6), Cinv, BCinv
 
 
-def solve_reduced(S, s, opt_mask):
-    """Solve the reduced camera system for the optimizable keyframes with a
-    Jacobi-equilibrated float32 Cholesky; fixed or empty slots get dx = 0."""
-    K = S.shape[0]
-    n = 6 * K
+def equilibrated_system(S, s, opt_mask):
+    """solve_reduced's system [6K, 6K]: the fixed and empty slots gated to
+    unit rows, Jacobi-equilibrated, + 1e-7 I. Returns (Hn, the right-hand
+    side times dinv, dinv)."""
+    n = 6 * S.shape[0]
     om = opt_mask.to(S.dtype)
     S = S * (om[:, None] * om[None, :])[:, :, None, None]
     H = S.permute(0, 2, 1, 3).reshape(n, n)
@@ -212,11 +213,18 @@ def solve_reduced(S, s, opt_mask):
     H = H * keep[:, None] * keep[None, :] + torch.diag(1.0 - keep)
     dinv = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))
     Hn = H * dinv[:, None] * dinv[None, :] + 1e-7 * torch.eye(n, dtype=H.dtype, device=H.device)
+    return Hn, rhs * dinv, dinv
+
+
+def solve_reduced(S, s, opt_mask):
+    """Solve the reduced camera system for the optimizable keyframes with a
+    Jacobi-equilibrated float32 Cholesky; fixed or empty slots get dx = 0."""
+    Hn, z, dinv = equilibrated_system(S, s, opt_mask)
     L, info = torch.linalg.cholesky_ex(Hn)
     L = torch.where(info == 0, L, torch.nan)  # as the reference: NaN, caught by the guard
-    y = torch.linalg.solve_triangular(L, (rhs * dinv)[:, None], upper=False)
+    y = torch.linalg.solve_triangular(L, z[:, None], upper=False)
     x = torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0] * dinv
-    return x.reshape(K, 6) * om[:, None]
+    return x.reshape(S.shape[0], 6) * opt_mask.to(S.dtype)[:, None]
 
 
 def back_substitute(Cinv, b, B, dx):
@@ -278,8 +286,20 @@ class _Anchored(NamedTuple):
     Xr: torch.Tensor  # [M, 3]
 
 
+def opt_mask(kf_valid: torch.Tensor, params: BAParams) -> torch.Tensor:
+    """The slots a solve optimises: live ones past the first n_fix (the
+    kernels' `opt_slot`)."""
+    return kf_valid & (torch.arange(kf_valid.shape[0], device=kf_valid.device) >= params.n_fix)
+
+
+def n_opt(kf_valid: torch.Tensor, params: BAParams) -> int:
+    """How many slots a solve optimises (`opt_mask`'s count; a host read
+    where kf_valid lies on the card). A window of K slots all live has the
+    most: n_opt(torch.ones(K, dtype=torch.bool), params)."""
+    return int(opt_mask(kf_valid, params).sum())
+
+
 def _anchor(problem: BAProblem, params: BAParams) -> _Anchored:
-    K = problem.T_cw.shape[0]
     obs_mask = problem.mask & problem.kf_valid[None, :]
     obs_mask_r = problem.mask_r & problem.kf_valid[None, :]
     lm_active = problem.lm_valid & (torch.sum(obs_mask, dim=1) >= params.min_obs)
@@ -287,7 +307,7 @@ def _anchor(problem: BAProblem, params: BAParams) -> _Anchored:
     T_wr = geo.se3_inverse(T_rw)
     return _Anchored(
         mask=obs_mask & lm_active[:, None], mask_r=obs_mask_r & lm_active[:, None], lm_active=lm_active,
-        opt_mask=problem.kf_valid & (torch.arange(K, device=problem.T_cw.device) >= params.n_fix),
+        opt_mask=opt_mask(problem.kf_valid, params),
         T_rw=T_rw, T_wr=T_wr, T_cr=problem.T_cw @ T_wr, Xr=geo.transform_points(T_rw, problem.Xw),
     )
 
@@ -370,7 +390,7 @@ def ba_solve_ref(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = BA
 # csrc/ba_gn.cuh's constants, sizes and `Args`, restated here; `check_layout`
 # holds them to the library's own when it is bound (kernels.bind_ba).
 MAX_K = 16  # kMaxK: the kernels' largest window
-_TL, _MAX_BLOCKS = 16, 64  # kTL landmarks per tile, kMaxBlocks tile blocks
+_TL, _MAX_BLOCKS = 16, 132  # kTL landmarks per tile, kMaxBlocks tile blocks (the H100's SM count)
 _TERMS, _ERR_INIT, _ERR_FINAL = 0, 1, 2  # ba_terms modes
 _SUM, _SOLVE = 1, 2  # ba_solve phases
 
@@ -383,46 +403,50 @@ def launches_per_solve(iters: int) -> int:
     return 4 * iters + 2
 
 
-def n_part(K: int) -> int:
-    """Floats of one tile block's partial sums (ba_gn.cuh n_part)."""
-    return 48 * K + 36 * K * K + 1
+def n_part(n: int) -> int:
+    """Floats of one tile block's partial sums over n optimisable slots
+    (ba_gn.cuh n_part): A, a, the lower block triangle of S_off, sb, the
+    divergence count."""
+    return 48 * n + 18 * n * (n + 1) + 1
 
 
-def n_sys(K: int) -> int:
-    """Floats of the reduced system (S, s, n_bad), the all-reduced buffer."""
-    return 36 * K * K + 6 * K + 1
+def n_sys(n: int) -> int:
+    """Floats of the kernels' reduced system over n optimisable slots (S's
+    lower block triangle, s, the divergence count): the buffer the group path
+    all-reduces."""
+    return 18 * n * (n + 1) + 6 * n + 1
 
 
 class _Args(ctypes.Structure):
     """`ba_gn::Args` of csrc/ba_gn.cuh, field for field."""
 
     _fields_ = [
-        *((n, ctypes.c_void_p) for n in ("pts", "pts_r", "mask", "mask_r", "active", "opt", "T_rl", "T_in",
-                                         "X_in")),
+        *((n, ctypes.c_void_p) for n in ("T_cw", "Xw", "pts", "pts_r", "mask", "mask_r", "kf_valid", "lm_valid",
+                                         "T_rl")),
         ("M", ctypes.c_int),
         ("K", ctypes.c_int),
-        *((n, ctypes.c_float) for n in ("fx", "fy", "cx", "cy", "huber_delta", "lam", "max_trans_update")),
-        ("iters", ctypes.c_int),
-        ("group", ctypes.c_int),
-        ("n_blocks", ctypes.c_int),
-        *((n, ctypes.c_void_p) for n in ("T", "X", "stop_at", "part", "err_part", "sys", "dx", "T_new", "dx_bad",
-                                         "dy", "dy_bad")),
+        *((n, ctypes.c_float) for n in ("fx", "fy", "cx", "cy", "huber_delta", "lam", "max_trans_update",
+                                        "kill_dist")),
+        *((n, ctypes.c_int) for n in ("iters", "n_fix", "min_obs", "group", "n_blocks")),
+        *((n, ctypes.c_void_p) for n in ("T_out", "X_out", "killed", "T", "X", "stop_at", "active", "list", "n_act",
+                                         "part", "err_part", "sys", "dx", "T_new", "dx_bad", "dy", "dy_bad")),
     ]
 
 
 def check_layout(lib: ctypes.CDLL) -> None:
     """Raise unless `lib`'s `ba_layout` (csrc/ba_gn.cuh's constants, n_part
-    and n_sys at every K, sizeof(Args) and its field offsets) equals what
-    this module restates: a drift would corrupt device memory silently."""
+    and n_sys at every count of optimisable slots, sizeof(Args) and its field
+    offsets) equals what this module restates: a drift would corrupt device
+    memory silently."""
     fields = [f for f, _ in _Args._fields_]
-    for K in range(1, MAX_K + 1):
-        want = [MAX_K, _TL, _MAX_BLOCKS, _TERMS, _ERR_INIT, _ERR_FINAL, _SUM, _SOLVE, n_part(K), n_sys(K),
+    for n in range(MAX_K + 1):
+        want = [MAX_K, _TL, _MAX_BLOCKS, _TERMS, _ERR_INIT, _ERR_FINAL, _SUM, _SOLVE, n_part(n), n_sys(n),
                 ctypes.sizeof(_Args), *(getattr(_Args, f).offset for f in fields)]
         buf = (ctypes.c_int * len(want))()
-        n = lib.ba_layout(K, buf, len(want))
-        if n != len(want) or list(buf) != want:
-            raise RuntimeError(f"ops/ba.py and csrc/ba_gn.cuh disagree on the kernels' layout at K = {K}: "
-                               f"library {list(buf)[:n]} ({n} ints), ops/ba.py {want}")
+        got = lib.ba_layout(n, buf, len(want))
+        if got != len(want) or list(buf) != want:
+            raise RuntimeError(f"ops/ba.py and csrc/ba_gn.cuh disagree on the kernels' layout at {n} optimisable "
+                               f"slots: library {list(buf)[:got]} ({got} ints), ops/ba.py {want}")
 
 
 def _check(problem: BAProblem, T_rl) -> torch.device:
@@ -438,37 +462,48 @@ def _check(problem: BAProblem, T_rl) -> torch.device:
     return KN.one_device([*problem, T_rl])
 
 
+def _result(outs: dict, e0, e1) -> BAResult:
+    """The kernels' result: the written-back window (`outs`) and the error
+    sums before, e0 = (error, left rows), and after, e1 = (error, left rows,
+    right rows)."""
+    return BAResult(outs["T_out"], outs["X_out"], outs["killed"], e1[0] / torch.clamp(e1[1], min=1),
+                    (e1[1] + e1[2]).to(torch.int64), e0[0] / torch.clamp(e0[1], min=1))
+
+
 def _ba_kernels(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams, group, info, lib,
                 launch=None, stream=None) -> BAResult:
     """The kernel route: the launch sequence of csrc/ba_gn.cuh through
     `lib`'s four launchers, `launch(name, c_fn, argv)` per launch (default
-    `kernels.launch`, which counts it). On one device nothing is read back
-    (`info`, where given, reads the iteration count once at the end). With
-    a group, ba_solve's sum and solve phases sit on both sides of the
-    all-reduce of (S, s, n_bad), and the host reads the stop flag once per
-    iteration."""
+    `kernels.launch`, which counts it). The first launch anchors the problem
+    and the last writes it back. On one device nothing is read back (`info`,
+    where given, reads the iteration count once at the end). With a group,
+    ba_solve's sum and solve phases sit on both sides of the all-reduce of
+    (S, s, n_bad), whose size the host reads once (the count of optimisable
+    slots), and the host reads the stop flag once per iteration."""
     K, M = problem.T_cw.shape[0], problem.Xw.shape[0]
     if K > MAX_K:
         raise ValueError(f"ba kernels: a window of {K} keyframes, at most {MAX_K}")
-    an = _anchor(problem, params)
     dev = problem.T_cw.device
     G = max(1, min(_MAX_BLOCKS, -(-M // _TL)))
+    most = n_opt(torch.ones(K, dtype=torch.bool), params)  # the scratch's size: no host read
 
     def empty(n, dtype=torch.float32):
         return torch.empty(n, dtype=dtype, device=dev)
 
-    ins = dict(pts=problem.pts.contiguous(), pts_r=problem.pts_r.contiguous(), mask=an.mask, mask_r=an.mask_r,
-               active=an.lm_active, opt=an.opt_mask, T_rl=T_rl.contiguous(), T_in=an.T_cr.contiguous(),
-               X_in=an.Xr.contiguous())
-    T, X = torch.empty_like(an.T_cr), torch.empty_like(an.Xr)
-    stop_at, err_part, sys_ = empty(1, torch.int32), empty(2 * G), empty(n_sys(K))
-    bufs = dict(T=T, X=X, stop_at=stop_at, part=empty(G * n_part(K)), err_part=err_part, sys=sys_, dx=empty(6 * K),
-                T_new=empty(16 * K), dx_bad=empty(1, torch.int32), dy=empty(3 * M), dy_bad=empty(G, torch.int32))
-    args = _Args(**{k: v.data_ptr() for k, v in {**ins, **bufs}.items()}, M=M, K=K, fx=float(fx), fy=float(fy),
-                 cx=float(cx), cy=float(cy), huber_delta=float(params.huber_delta), lam=float(params.lam),
-                 max_trans_update=float(params.max_trans_update), iters=int(params.iters),
-                 group=int(group is not None), n_blocks=G)
-    args.tensors = (ins, bufs)  # what it points at lives as long as it does (a replay of its launches)
+    ins = {name: t.contiguous() for name, t in zip(BAProblem._fields, problem)}
+    ins["T_rl"] = T_rl.contiguous()
+    outs = dict(T_out=torch.empty_like(ins["T_cw"]), X_out=torch.empty_like(ins["Xw"]), killed=empty(M, torch.bool))
+    stop_at, err_part, sys_ = empty(1, torch.int32), empty(6 * G), empty(n_sys(most))
+    bufs = dict(T=empty(16 * K), X=empty(3 * M), stop_at=stop_at, active=empty(M, torch.bool),
+                list=empty(M, torch.int32), n_act=empty(1, torch.int32), part=empty(G * n_part(most)),
+                err_part=err_part, sys=sys_, dx=empty(6 * K), T_new=empty(16 * K), dx_bad=empty(1, torch.int32),
+                dy=empty(3 * M), dy_bad=empty(G, torch.int32))
+    args = _Args(**{k: v.data_ptr() for k, v in {**ins, **outs, **bufs}.items()}, M=M, K=K, fx=float(fx),
+                 fy=float(fy), cx=float(cx), cy=float(cy), huber_delta=float(params.huber_delta),
+                 lam=float(params.lam), max_trans_update=float(params.max_trans_update),
+                 kill_dist=float(params.kill_dist), iters=int(params.iters), n_fix=int(params.n_fix),
+                 min_obs=int(params.min_obs), group=int(group is not None), n_blocks=G)
+    args.tensors = (ins, outs, bufs)  # what it points at lives as long as it does (a replay of its launches)
     ref = ctypes.byref(args)
 
     launch = launch or _launch
@@ -476,15 +511,18 @@ def _ba_kernels(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams, grou
     def go(name, *argv):
         launch(name, getattr(lib, name + "_launch"), (ref, *argv, stream))
 
+    sums = err_part.view(2, G, 3)
     go("ba_terms", -1, _ERR_INIT)
-    err0, n0 = _all_reduce(torch.sum(err_part[:G]), torch.sum(an.mask), group=group)
+    if group is not None:
+        e0 = _all_reduce(sums[0, :, :2].sum(dim=0), group=group)[0]
+        system = sys_[:n_sys(n_opt(ins["kf_valid"], params))]
     for it in range(params.iters):
         go("ba_terms", it, _TERMS)
         if group is None:
             go("ba_solve", it, _SUM | _SOLVE)
         else:
             go("ba_solve", it, _SUM)
-            sys_.copy_(_all_reduce(sys_, group=group)[0])
+            system.copy_(_all_reduce(system, group=group)[0])
             go("ba_solve", it, _SOLVE)
         go("ba_backsub", it)
         go("ba_apply", it)
@@ -493,8 +531,11 @@ def _ba_kernels(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams, grou
     go("ba_terms", -1, _ERR_FINAL)
     if info is not None:
         info["iters"] = int(stop_at)
-    err, n_l, n_r = _all_reduce(torch.sum(err_part[G:]), torch.sum(an.mask), torch.sum(an.mask_r), group=group)
-    return _write_back(problem, params, an, T, X, err, n_l, n_r, err0 / torch.clamp(n0, min=1))
+    if group is None:
+        e0, e1 = sums.sum(dim=1)
+    else:
+        e1 = _all_reduce(sums[1].sum(dim=0), group=group)[0]
+    return _result(outs, e0, e1)
 
 
 def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = BAParams(),
@@ -512,8 +553,9 @@ def ba_solve_impl(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = B
     replicated. Assembly, elimination and back-substitution stay
     shard-local. A solve of n iterations makes n + 2 all-reduces: the
     starting error's sums; per iteration, the reduced camera system (S, s)
-    with the dy divergence count; the final error's sums with the
-    observation counts. Every rank then solves the same system
+    with the dy divergence count (the kernels reduce only the optimisable
+    slots' lower block triangle of it, `n_sys`); the final error's sums with
+    the observation counts. Every rank then solves the same system
     the same way, so dx, the stop test and the loop's length agree across
     ranks; dy is shard-local and must not feed the stop test."""
     if _check(problem, T_rl).type == "cpu":

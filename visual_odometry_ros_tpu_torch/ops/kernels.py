@@ -73,6 +73,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.klt_scale_launch.restype = I
     lib.pose_gn_launch.argtypes = [P, P]
     lib.pose_gn_launch.restype = I
+    lib.ba_occupancy.argtypes = [I, I, ctypes.POINTER(I)]
+    lib.ba_occupancy.restype = I
     bind_ba(lib)
 
 
