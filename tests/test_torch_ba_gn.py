@@ -241,18 +241,19 @@ def test_ba_kernels_algorithm_matches_plain_version_and_jax(case, host_lib):
 
 
 def test_kernel_launch_sequence_is_fixed_by_iters(host_lib):
-    """4 iters + 2 launches whether or not the loop stops early: ba_terms
-    (starting error), then per iteration ba_terms, ba_solve, ba_backsub,
-    ba_apply, then ba_terms (final error). A relaunch is bit-identical."""
+    """3 iters + 2 launches whether or not the loop stops early: ba_terms
+    (starting error), then per iteration ba_terms, ba_solve, ba_backsub
+    (whose last block runs the apply step), then ba_terms (final error). A
+    relaunch is bit-identical."""
     args, intr, T_rl = CASES["early_stop"][0]()
     problem, T_rl_t = torch_problem(args, T_rl)
     params = TBA.BAParams(iters=6)
     log, info = [], {}
     first = host_solve(host_lib, problem, intr, T_rl_t, params, info, log)
     assert info["iters"] < params.iters
-    assert len(log) == TBA.launches_per_solve(params.iters) == 26
-    want = ([("ba_terms", -1)] + [(k, it) for it in range(6) for k in ("ba_terms", "ba_solve", "ba_backsub",
-                                                                        "ba_apply")] + [("ba_terms", -1)])
+    assert len(log) == TBA.launches_per_solve(params.iters) == 20
+    want = ([("ba_terms", -1)] + [(k, it) for it in range(6) for k in ("ba_terms", "ba_solve", "ba_backsub")]
+            + [("ba_terms", -1)])
     assert log == want
     again = host_solve(host_lib, problem, intr, T_rl_t, params)
     for a, b in zip(first, again):

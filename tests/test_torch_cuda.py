@@ -576,7 +576,7 @@ def test_one_rank_nccl_ba_matches_single_device(dev, tmp_path):
         KN.reset_launch_counts()
         ref = BA.ba_solve_impl(BA.BAProblem(*(torch.as_tensor(a, device=rank_dev) for a in prob)), fx, fy, cx, cy,
                                T_rl, params, info=info_s)
-        assert KN.LAUNCHES["ba_apply"] == params.iters  # the single-device solve runs on the ba_* kernels
+        assert KN.LAUNCHES["ba_backsub"] == params.iters  # the single-device solve runs on the ba_* kernels
     finally:
         dist.destroy_process_group()
     torch.testing.assert_close(res.T_cw, ref.T_cw, atol=2e-4, rtol=0)
@@ -805,6 +805,70 @@ def test_pose_gn_relaunch_is_bit_identical_and_never_syncs(dev, kind):
     assert all(torch.equal(x, y) for x, y in zip(*flat))
 
 
+def polish_pair(dev):
+    """pnp_ransac's two polishes of one recovery at the mono N: the first
+    40 valid points from a perturbed pose, every valid point from the
+    identity (`pose_only_gn_mono_many`'s solves)."""
+    X0, pl, vl, fx, fy, cx, cy, T0 = pose_problem(dev, "mono_polish", seed=31)
+    winner = vl & (torch.cumsum(vl.to(torch.int64), 0) <= 40)
+    T_w = TG.se3_exp(torch.tensor([0.03, -0.02, -0.2, 0.004, 0.01, -0.003], device=dev))
+    return [(X0, pl, winner, fx, fy, cx, cy, T_w), (X0, pl, vl, fx, fy, cx, cy, T0)]
+
+
+@pytest.mark.cuda
+def test_pose_gn_pair_is_one_launch_and_each_solve_its_single_launch(dev):
+    """pnp_ransac's two polishes in one launch of two blocks: each solve bit
+    for bit what its own launch gives, and within the plain version's
+    tolerances (test_pose_gn_matches_plain_version's)."""
+    solves, params = polish_pair(dev), TPG.PoseGNParams(max_iters=30)
+    KN.reset_launch_counts()
+    pair = TPG.pose_only_gn_mono_many(solves, params)
+    torch.cuda.synchronize()
+    assert KN.LAUNCHES == {**dict.fromkeys(KN.LAUNCHES, 0), "pose_gn": 1}
+    for s, got in zip(solves, pair):
+        alone = TPG.pose_only_gn_mono(*s, params)
+        assert all(torch.equal(a, b) for a, b in zip(got, alone))
+        ref = TPG.pose_only_gn_mono_ref(*s, params)
+        assert bool(got.ok) == bool(ref.ok)
+        torch.testing.assert_close(got.T10, ref.T10, atol=1e-4, rtol=0)
+        torch.testing.assert_close(got.mean_err, ref.mean_err, rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+def test_pose_gn_pair_relaunch_is_bit_identical_and_never_syncs(dev):
+    solves, params = polish_pair(dev), TPG.PoseGNParams(max_iters=30)
+    TPG.pose_only_gn_mono_many(solves, params)
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, b = TPG.pose_only_gn_mono_many(solves, params), TPG.pose_only_gn_mono_many(solves, params)
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    assert all(torch.equal(x, y) for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+
+
+@pytest.mark.cuda
+def test_pose_gn_launcher_takes_one_to_max_solves(dev):
+    """The C launcher runs 1 to MAX_SOLVES solves, one block of 256 threads
+    each, and refuses any other count; a single solve agrees with the plain
+    version."""
+    import ctypes
+
+    args = pose_problem(dev, "stereo_robust")
+    params = TPG.PoseGNParams()
+    inputs = (args[0], args[1], args[2], args[3], args[4], args[9], args[10], *args[5:9], params, 2, 2.0)
+    res, err, packed = TPG._pack(*inputs)
+    lib = KN.build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert lib.pose_gn_launch(ctypes.byref(packed), 1, stream) == 0
+    assert lib.pose_gn_launch(ctypes.byref(packed), 0, stream) != 0
+    assert lib.pose_gn_launch(ctypes.byref(packed), TPG.MAX_SOLVES + 1, stream) != 0
+    ref, _ = TPG.pose_only_gn_stereo_robust_ref(*args, params)
+    assert bool(res.ok) == bool(ref.ok)
+    torch.testing.assert_close(res.T10, ref.T10, atol=1e-4, rtol=0)
+
+
 @pytest.mark.cuda
 def test_pose_gn_refuses_what_it_cannot_serve(dev):
     X0, pl, pr, vl, vr, fx, fy, cx, cy, T_rl, T0 = pose_problem(dev, "stereo_robust")
@@ -892,9 +956,8 @@ def test_ba_kernels_match_the_plain_version(dev, kind):
     info_k, info_r = {}, {}
     KN.reset_launch_counts()
     got = BA.ba_solve_impl(prob, *intr, T_rl, params, info=info_k)
-    assert {k: KN.LAUNCHES[k] for k in ("ba_terms", "ba_solve", "ba_backsub", "ba_apply")} == {
-        "ba_terms": params.iters + 2, "ba_solve": params.iters, "ba_backsub": params.iters,
-        "ba_apply": params.iters}
+    assert {k: KN.LAUNCHES[k] for k in ("ba_terms", "ba_solve", "ba_backsub")} == {
+        "ba_terms": params.iters + 2, "ba_solve": params.iters, "ba_backsub": params.iters}
     ref = BA.ba_solve_ref(prob, *intr, T_rl, params, info=info_r)
     assert_ba_close(got, ref, info_k, info_r)
 
@@ -1002,7 +1065,7 @@ def test_ba_kernels_relaunch_is_bit_identical_and_never_syncs(dev):
         a, b = BA.ba_solve_impl(prob, *intr, T_rl, params), BA.ba_solve_impl(prob, *intr, T_rl, params)
     finally:
         torch.cuda.set_sync_debug_mode(before)
-    assert sum(KN.LAUNCHES[k] for k in ("ba_terms", "ba_solve", "ba_backsub", "ba_apply")) == 2 * BA.launches_per_solve(7)
+    assert sum(KN.LAUNCHES[k] for k in ("ba_terms", "ba_solve", "ba_backsub")) == 2 * BA.launches_per_solve(7)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 

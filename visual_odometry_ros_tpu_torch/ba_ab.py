@@ -14,6 +14,9 @@ helpers, as phase 3 times them:
     launch of one phase; a ba_solve launch writes nothing it reads);
   - host us per solve (`host_us`: perf_counter over calls, no synchronise
     inside);
+  - the result's digest (sha1 of T_cw, Xw, the kill flags, both errors and
+    the observation count, and the iterations run), so two trees' solves
+    are compared bit for bit;
 and appends one JSON line per problem to `--out`. `--accuracy LEG` instead
 runs the 200-frame HardSequence's stereo leg (`eval_accuracy.run_stereo`,
 KLT leg `on` or `off`) twice, window BA on the kernels (every problem
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import hashlib
 import json
 import os
 import sys
@@ -69,7 +73,7 @@ def time_problem(path: str, dev) -> dict:
     args, kwargs = torch.load(path, weights_only=False)
     args = tuple(tensors(a, lambda t: t.to(dev)) for a in args)
     info = {}
-    BA.ba_solve_impl(*args, **kwargs, info=info)  # builds and loads the kernels
+    res = BA.ba_solve_impl(*args, **kwargs, info=info)  # builds and loads the kernels
 
     def solve():
         return BA.ba_solve_impl(*args, **kwargs)
@@ -78,9 +82,16 @@ def time_problem(path: str, dev) -> dict:
     row = {"problem": os.path.splitext(os.path.basename(path))[0], "K": int(args[0].T_cw.shape[0]),
            "iters": info["iters"], "launches": len(calls), "ms": cs.device_ms([c[1:] for c in calls], reps=20),
            "split_ms": cs.kernel_split_ms(calls), "solve_phase_ms": solve_phase_ms(cs, calls),
-           "host_us": cs.host_us(solve, reps=20)}
+           "host_us": cs.host_us(solve, reps=20), "result_sha1": digest(res, info["iters"])}
     del held  # held until the replays are done
     return row
+
+
+def digest(res, iters: int) -> dict:
+    """sha1 of each field of a BAResult's bytes, and the iterations run."""
+    out = {f: hashlib.sha1(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+           for f, t in zip(res._fields, res)}
+    return {**out, "iters": iters}
 
 
 def accuracy(leg: str, frames: int = 200, device="cuda") -> dict:
@@ -124,11 +135,15 @@ def accuracy(leg: str, frames: int = 200, device="cuda") -> dict:
 
 
 def tensors(x, fn):
-    """fn(x) for a tensor, the named tuple with fn applied to its fields for
-    a named tuple (BAProblem, BAParams), else x."""
+    """fn applied to every tensor in x, through named tuples (BAProblem,
+    BAParams), tuples and lists; anything else as it is."""
     if isinstance(x, torch.Tensor):
         return fn(x)
-    return type(x)(*(tensors(v, fn) for v in x)) if isinstance(x, tuple) and hasattr(x, "_fields") else x
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(tensors(v, fn) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(tensors(v, fn) for v in x)
+    return x
 
 
 def main(argv=None) -> list:

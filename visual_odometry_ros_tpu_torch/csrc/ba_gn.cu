@@ -1,5 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the Gauss-Newton loop of
-// sliding-window bundle adjustment: ba_terms, ba_solve, ba_backsub, ba_apply.
+// sliding-window bundle adjustment: ba_terms, ba_solve, ba_backsub (whose
+// last block runs the apply step).
 //
 // Replaces what the JAX package runs on the device as XLA's while loop, not
 // a Pallas kernel: the `jax.lax.while_loop(iter_cond, iteration, ...)` of
@@ -8,7 +9,7 @@
 // blocks, schur_reduce, solve_reduced and back_substitute; the errors
 // `masked_mean_err` :366-372), with the anchoring before it and the
 // write-back after it (:348-363, :421-435). A solve is a fixed sequence of
-// launches that ops/ba.py enqueues without reading anything back (4 iters +
+// launches that ops/ba.py enqueues without reading anything back (3 iters +
 // 2 on one device): every kernel reads the device-side `stop_at` and returns
 // at once from the iteration the loop stopped at, as the while loop would
 // not have run it. The algorithm is in ba_gn.cuh, shared with the one-thread
@@ -24,7 +25,7 @@
 //
 // What the design does about it:
 //   - no host round trip: the anchoring, the stop test, the guard, the pose
-//     update and the write-back are device-side; the host enqueues 4 iters +
+//     update and the write-back are device-side; the host enqueues 3 iters +
 //     2 launches, and turns three per-block sums into the error and count;
 //   - only the active landmarks are walked: the first launch lists them
 //     (block 0, a block-wide prefix), the tile launches cut that list into
@@ -43,11 +44,16 @@
 //   - ba_terms never writes the per-pair blocks (B, BCinv) to device memory:
 //     a block of kTermThreads threads builds a tile of kTL landmarks in
 //     shared memory and adds its share to per-block partial sums, each entry
-//     owned by one thread (no atomics); ba_backsub rebuilds the tile's blocks
-//     from the same inputs with the same code, bit for bit;
-//   - every cross-block sum is taken in block order by one owner (ba_solve
-//     sums the partials, 16 loads in flight, ba_apply the counts): a
-//     relaunch is bit-identical;
+//     owned by one thread; ba_backsub rebuilds the tile's blocks from the
+//     same inputs with the same code, bit for bit;
+//   - one ticket per block, and no sum taken by atomics: every ba_backsub
+//     block, with a tile or without, writes its dy and its count, fences
+//     them and takes a ticket (atomicAdd); the block that takes the last
+//     one runs the apply step (the guard, Xr += dy, T_cr, the stop test) as
+//     the launch's tail, so the apply step has no launch of its own;
+//   - every cross-block sum of floats is taken in block order by one owner
+//     (ba_solve sums the partials, 16 loads in flight; the tail's count of
+//     non-finite dy is an integer): a relaunch is bit-identical;
 //   - ba_solve is one block; the system of the n = 6 n_opt unknowns stays in
 //     shared memory. Up to 32 unknowns (both keyframe problems of the main
 //     path) one warp factors and solves it, lanes owning rows, with
@@ -70,7 +76,6 @@ namespace ba_gn {
 
 constexpr int kTermThreads = 256;
 constexpr int kSolveThreads = 512;
-constexpr int kApplyThreads = 256;
 
 struct DeviceBlock {
   int tid, nthr, bid, nblk;
@@ -113,6 +118,33 @@ struct DeviceBlock {
     *total = all;
     return before + x - v;
   }
+
+  // The block's max of v, in every thread (fmaxf: the same in any order).
+  __device__ float max(float v) {
+    __shared__ float part[32];
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (lane == 0) part[warp] = v;
+    __syncthreads();
+    float s = part[0];
+    for (int w = 1; w < (nthr >> 5); ++w) s = fmaxf(s, part[w]);
+    __syncthreads();
+    return s;
+  }
+
+  // Whether this block is the launch's last to get here: every thread's
+  // writes are fenced to the device, then the block takes a ticket; the
+  // last block fences again before it reads what the others wrote.
+  __device__ bool last(int* ticket) {
+    __shared__ int is_last;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) is_last = atomicAdd(ticket, 1) == nblk - 1;
+    __syncthreads();
+    const bool l = is_last;
+    if (l) __threadfence();
+    return l;
+  }
 };
 
 __global__ void __launch_bounds__(kTermThreads, 2) ba_terms_kernel(const Args a, int it, int mode) {
@@ -136,11 +168,6 @@ __global__ void __launch_bounds__(kTermThreads, 2) ba_backsub_kernel(const Args 
   __shared__ Slots s;
   DeviceBlock b;
   backsub_block(a, b, s, smem, it);
-}
-
-__global__ void __launch_bounds__(kApplyThreads) ba_apply_kernel(const Args a, int it) {
-  DeviceBlock b;
-  apply_block(a, b, it);
 }
 
 // The tile kernels use more than 48 KB of dynamic shared memory at large K:
@@ -184,34 +211,26 @@ int ba_backsub_launch(const ba_gn::Args* a, int it, void* stream) {
   return (int)cudaGetLastError();
 }
 
-int ba_apply_launch(const ba_gn::Args* a, int it, void* stream) {
-  int grid = (a->M + ba_gn::kApplyThreads - 1) / ba_gn::kApplyThreads;
-  ba_gn::ba_apply_kernel<<<grid > 0 ? grid : 1, ba_gn::kApplyThreads, 0, (cudaStream_t)stream>>>(*a, it);
-  return (int)cudaGetLastError();
-}
-
 // ba_gn.cuh's layout at n optimisable slots (ops/ba.py checks it against its
 // own at bind time).
 int ba_layout(int n, int* out, int cap) { return ba_gn::layout(n, out, cap); }
 
 // How each launch of a window of K slots (n_fix fixed) sits on the card:
 // per launch (ba_terms' tile mode, ba_terms' error modes, ba_solve,
-// ba_backsub, ba_apply) its registers per thread, static and dynamic shared
-// bytes per block, threads per block and resident blocks per SM. Writes 25
-// ints; returns a cudaError_t.
+// ba_backsub with its tail) its registers per thread, static and dynamic
+// shared bytes per block, threads per block and resident blocks per SM.
+// Writes 20 ints; returns a cudaError_t.
 int ba_occupancy(int K, int n_fix, int* out) {
   cudaError_t e = ba_gn::opt_in();
   if (e != cudaSuccess) return (int)e;
   ba_gn::Args a{};
   a.K = K;
   a.n_fix = n_fix;
-  const void* fns[5] = {(const void*)ba_gn::ba_terms_kernel, (const void*)ba_gn::ba_terms_kernel,
-                        (const void*)ba_gn::ba_solve_kernel, (const void*)ba_gn::ba_backsub_kernel,
-                        (const void*)ba_gn::ba_apply_kernel};
-  const int threads[5] = {ba_gn::kTermThreads, ba_gn::kTermThreads, ba_gn::kSolveThreads, ba_gn::kTermThreads,
-                          ba_gn::kApplyThreads};
-  const size_t dyn[5] = {ba_gn::tile_bytes(&a), ba_gn::err_floats(K) * sizeof(float), 0, ba_gn::tile_bytes(&a), 0};
-  for (int i = 0; i < 5; ++i) {
+  const void* fns[4] = {(const void*)ba_gn::ba_terms_kernel, (const void*)ba_gn::ba_terms_kernel,
+                        (const void*)ba_gn::ba_solve_kernel, (const void*)ba_gn::ba_backsub_kernel};
+  const int threads[4] = {ba_gn::kTermThreads, ba_gn::kTermThreads, ba_gn::kSolveThreads, ba_gn::kTermThreads};
+  const size_t dyn[4] = {ba_gn::tile_bytes(&a), ba_gn::err_floats(K) * sizeof(float), 0, ba_gn::tile_bytes(&a)};
+  for (int i = 0; i < 4; ++i) {
     cudaFuncAttributes attr;
     e = cudaFuncGetAttributes(&attr, fns[i]);
     if (e != cudaSuccess) return (int)e;

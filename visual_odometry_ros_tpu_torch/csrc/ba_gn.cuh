@@ -35,12 +35,13 @@
 // of an active landmark. Only a product BCinv B that overflows while both
 // factors are finite, on a pair with a fixed slot, decides otherwise.
 //
-// Launch sequence of a single-device solve (ops/ba.py enqueues it; 4 iters + 2
+// Launch sequence of a single-device solve (ops/ba.py enqueues it; 3 iters + 2
 // launches, no host read):
 //   ba_terms(kErrInit)   _anchor: the masks, lm_active, opt_mask and the
 //                        start anchored at slot 0 (T_cr, Xr) into the state;
 //                        the list of active landmark slots (block 0);
-//                        stop_at = iters; the starting error's per-block sums;
+//                        stop_at = iters, the ticket counter 0; the starting
+//                        error's per-block sums;
 //   per iteration it = 0 .. iters - 1, each a no-op once it >= stop_at:
 //     ba_terms(kTerms)   per tile of kTL listed landmarks: the landmark
 //                        blocks (C, b, B, Cinv, BCinv) and the tile's share of
@@ -53,10 +54,11 @@
 //                        the block by 6 x 6 keyframe blocks), the dx guard
 //                        and the candidate poses;
 //     ba_backsub         per tile: dy = Cinv (b - B^T dx) and the tile's
-//                        count of non-finite dy;
-//     ba_apply           the guard's decision (counts summed in block order),
-//                        Xr += dy on the listed landmarks, T_cr, and
-//                        stop_at = it + 1 once done;
+//                        count of non-finite dy; then every block takes a
+//                        ticket, and the last one runs the apply step: the
+//                        guard's decision (the counts summed), Xr += dy on
+//                        the listed landmarks, T_cr, and stop_at = it + 1
+//                        once done;
 //   ba_terms(kErrFinal)  the final error's per-block sums and _write_back:
 //                        T_cw (re-orthonormalised where optimised), Xw,
 //                        killed.
@@ -118,6 +120,7 @@ struct Args {
   int* dx_bad;      // [1]
   float* dy;        // [M, 3] (written for active landmarks only)
   int* dy_bad;      // [n_blocks] active landmarks with a non-finite dy or block
+  int* ticket;      // [1] ba_backsub's blocks that have finished their tiles
 };
 
 // Sizes over the n optimisable slots. The lower block triangle of S holds
@@ -151,7 +154,7 @@ inline int layout(int n, int* out, int cap) {
                    BA_GN_OFFSET(killed) BA_GN_OFFSET(T) BA_GN_OFFSET(X) BA_GN_OFFSET(stop_at)
                    BA_GN_OFFSET(active) BA_GN_OFFSET(list) BA_GN_OFFSET(n_act) BA_GN_OFFSET(part)
                    BA_GN_OFFSET(err_part) BA_GN_OFFSET(sys) BA_GN_OFFSET(dx) BA_GN_OFFSET(T_new)
-                   BA_GN_OFFSET(dx_bad) BA_GN_OFFSET(dy) BA_GN_OFFSET(dy_bad)};
+                   BA_GN_OFFSET(dx_bad) BA_GN_OFFSET(dy) BA_GN_OFFSET(dy_bad) BA_GN_OFFSET(ticket)};
   const int n_v = (int)(sizeof(v) / sizeof(v[0]));
   if (n_v <= cap)
     for (int i = 0; i < n_v; ++i) out[i] = v[i];
@@ -625,7 +628,10 @@ PG_HD void err_block(const Args& a, Blk& b, float* smem, int mode) {
     b.sync();
     if (b.bid == 0) {
       for (int i = b.tid; i < 16 * K; i += b.nthr) a.T[i] = Tcr[i];
-      if (b.tid == 0) *a.stop_at = a.iters;
+      if (b.tid == 0) {
+        *a.stop_at = a.iters;
+        *a.ticket = 0;
+      }
       build_list(a, b);
     }
   } else if (b.bid == 0) {
@@ -686,44 +692,104 @@ PG_HD void err_block(const Args& a, Blk& b, float* smem, int mode) {
   }
 }
 
+// A load that reads through to L2: what another block of the launch wrote.
+template <class T>
+PG_HD T ld_cg(const T* p) {
+#ifdef __CUDA_ARCH__
+  return __ldcg(p);
+#else
+  return *p;
+#endif
+}
+
+// The apply step, run by ba_backsub's last block once every block has
+// written its dy and its count: the guard (the dx test, then the divergence
+// counts: the all-reduced n_bad, and on one device also every tile's
+// non-finite dy, whose sum is an integer and so the same in any order),
+// Xr += dy on the listed landmarks and T_cr = T_new unless bad, the block
+// striding both, and the early stop: done = bad or max |dx| < 1e-5 sets
+// stop_at = it + 1, which the launches of later iterations read. The
+// ticket goes back to 0 for the next iteration's launch.
+template <class Blk>
+PG_HD void apply_tail(const Args& a, Blk& b, int it) {
+  const int n_act = *a.n_act, G = used_blocks(a, n_act);
+  float n_dy = 0.0f;
+  for (int g = b.tid; g < G; g += b.nthr) n_dy += (float)ld_cg(a.dy_bad + g);
+  n_dy = b.sum(n_dy);
+  const bool bad = *a.dx_bad || a.sys[n_sys(count_opt(a)) - 1] > 0.0f || (!a.group && n_dy > 0.0f);
+  float mx = 0.0f;
+  if (!bad) {
+    // Xr += dy, kInFlight list positions a thread at a time: their loads
+    // are all issued before the first store (one block walks every listed
+    // landmark, so the loop is bound by memory latency, not work).
+    constexpr int kInFlight = 8;
+    for (int p0 = b.tid; p0 < n_act; p0 += kInFlight * b.nthr) {
+      int m[kInFlight];
+      float x[kInFlight][3], d[kInFlight][3];
+      for (int u = 0; u < kInFlight; ++u) {
+        const int p = p0 + u * b.nthr;
+        m[u] = p < n_act ? a.list[p] : -1;
+      }
+      for (int u = 0; u < kInFlight; ++u)
+        for (int c = 0; c < 3 && m[u] >= 0; ++c) {
+          x[u][c] = a.X[3 * m[u] + c];
+          d[u][c] = ld_cg(a.dy + 3 * m[u] + c);
+        }
+      for (int u = 0; u < kInFlight; ++u)
+        for (int c = 0; c < 3 && m[u] >= 0; ++c) a.X[3 * m[u] + c] = x[u][c] + d[u][c];
+    }
+    for (int i = b.tid; i < 16 * a.K; i += b.nthr) a.T[i] = a.T_new[i];
+    for (int i = b.tid; i < 6 * a.K; i += b.nthr) mx = fmaxf(mx, fabsf(a.dx[i]));
+  }
+  mx = b.max(mx);
+  if (b.tid == 0) {
+    if (bad || mx < 1e-5f) *a.stop_at = it + 1;
+    *a.ticket = 0;
+  }
+}
+
 // ba_backsub: dy = Cinv (b - sum_k B_k^T dx_k) over the optimisable slots
 // (dx is an exact 0 on the others) for the block's tiles of listed
-// landmarks, and the count of those whose blocks or dy are not finite.
+// landmarks, and the count of those whose blocks or dy are not finite; then
+// every block, with a tile or without, takes a ticket, and the last runs
+// the apply step (`apply_tail`).
 template <class Blk>
 PG_HD void backsub_block(const Args& a, Blk& b, Slots& s, float* smem, int it) {
   if (it >= *a.stop_at) return;
   load_slots(a, b, s);
-  if (b.bid >= s.n_tiles) return;
-  const int K = a.K, no = s.n_opt;
-  Tile t(smem, K, no);
-  int count = 0;
-  for (int tile = b.bid; tile < s.n_tiles; tile += b.nblk) {
-    const int p0 = kTL * tile;
-    b.sync();
-    tile_blocks(a, b, s, t, p0, false);
-    for (int l = b.tid; l < kTL; l += b.nthr) {
-      if (p0 + l >= s.n_act) continue;
-      const int m = a.list[p0 + l];
-      float rhs[3], dy[3];
-      for (int c = 0; c < 3; ++c) {
-        float acc = 0.0f;
-        for (int o = 0; o < no; ++o) {
-          const int k = s.slot[o];
-          if (!t.obs[l * K + k]) continue;
-          for (int r = 0; r < 6; ++r) acc += t.B[18 * (l * no + o) + 3 * r + c] * a.dx[6 * k + r];
+  if (b.bid < s.n_tiles) {
+    const int K = a.K, no = s.n_opt;
+    Tile t(smem, K, no);
+    int count = 0;
+    for (int tile = b.bid; tile < s.n_tiles; tile += b.nblk) {
+      const int p0 = kTL * tile;
+      b.sync();
+      tile_blocks(a, b, s, t, p0, false);
+      for (int l = b.tid; l < kTL; l += b.nthr) {
+        if (p0 + l >= s.n_act) continue;
+        const int m = a.list[p0 + l];
+        float rhs[3], dy[3];
+        for (int c = 0; c < 3; ++c) {
+          float acc = 0.0f;
+          for (int o = 0; o < no; ++o) {
+            const int k = s.slot[o];
+            if (!t.obs[l * K + k]) continue;
+            for (int r = 0; r < 6; ++r) acc += t.B[18 * (l * no + o) + 3 * r + c] * a.dx[6 * k + r];
+          }
+          rhs[c] = t.b[3 * l + c] - acc;
         }
-        rhs[c] = t.b[3 * l + c] - acc;
+        const float* Ci = t.Cinv + 9 * l;
+        for (int i = 0; i < 3; ++i) dy[i] = (Ci[3 * i] * rhs[0] + Ci[3 * i + 1] * rhs[1]) + Ci[3 * i + 2] * rhs[2];
+        t.bad[l] = t.bad[l] || !finite_n(dy, 3);
+        for (int i = 0; i < 3; ++i) a.dy[3 * m + i] = dy[i];
       }
-      const float* Ci = t.Cinv + 9 * l;
-      for (int i = 0; i < 3; ++i) dy[i] = (Ci[3 * i] * rhs[0] + Ci[3 * i + 1] * rhs[1]) + Ci[3 * i + 2] * rhs[2];
-      t.bad[l] = t.bad[l] || !finite_n(dy, 3);
-      for (int i = 0; i < 3; ++i) a.dy[3 * m + i] = dy[i];
+      b.sync();
+      if (b.tid == 0)
+        for (int l = 0; l < kTL; ++l) count += t.bad[l] ? 1 : 0;
     }
-    b.sync();
-    if (b.tid == 0)
-      for (int l = 0; l < kTL; ++l) count += t.bad[l] ? 1 : 0;
+    if (b.tid == 0) a.dy_bad[b.bid] = count;
   }
-  if (b.tid == 0) a.dy_bad[b.bid] = count;
+  if (b.last(a.ticket)) apply_tail(a, b, it);
 }
 
 // What ba_solve keeps in shared memory.
@@ -901,35 +967,6 @@ PG_HD void solve_block(const Args& a, Blk& b, SolveShared& sh, int it, int phase
     bool bad = false;
     for (int k = 0; k < K; ++k) bad = bad || sh.bad[k];
     *a.dx_bad = bad;
-  }
-}
-
-// ba_apply, a thread per list position: the guard (the dx test, then the
-// divergence counts summed in block order: the all-reduced n_bad, and on one
-// device also every tile's non-finite dy), Xr += dy on the listed landmarks
-// and T_cr = T_new unless bad, and the early stop: done = bad or max |dx| <
-// 1e-5 sets stop_at = it + 1, which the launches of later iterations read
-// (this launch's blocks compare it with it).
-template <class Blk>
-PG_HD void apply_block(const Args& a, Blk& b, int it) {
-  if (it >= *a.stop_at) return;
-  const int n_act = *a.n_act, G = used_blocks(a, n_act);
-  int n_dy = 0;
-  for (int g = 0; g < G; ++g) n_dy += a.dy_bad[g];
-  const bool dy_bad = a.sys[n_sys(count_opt(a)) - 1] > 0.0f || (!a.group && n_dy > 0);
-  const bool bad = *a.dx_bad || dy_bad;
-  if (!bad)
-    for (int p = b.bid * b.nthr + b.tid; p < n_act; p += b.nthr * b.nblk) {
-      const int m = a.list[p];
-      for (int i = 3 * m; i < 3 * m + 3; ++i) a.X[i] = a.X[i] + a.dy[i];
-    }
-  if (b.bid == 0 && b.tid == 0) {
-    float mx = 0.0f;
-    if (!bad) {
-      for (int i = 0; i < 16 * a.K; ++i) a.T[i] = a.T_new[i];
-      for (int i = 0; i < 6 * a.K; ++i) mx = fmaxf(mx, fabsf(a.dx[i]));
-    }
-    if (bad || mx < 1e-5f) *a.stop_at = it + 1;
   }
 }
 

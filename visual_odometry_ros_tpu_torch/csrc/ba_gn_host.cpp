@@ -1,9 +1,10 @@
 // The `ba_*` kernels' algorithm (ba_gn.cuh) as one host thread, for the CPU
-// tests: the same four launchers and `ba_layout`, under the same names and
+// tests: the same three launchers and `ba_layout`, under the same names and
 // arguments as ba_gn.cu's (the stream is ignored), each launcher running the
-// launch's blocks one after the other with one thread. A block's sum and
-// prefix over its one thread are the thread's own value and 0; the warp that
-// factors the reduced system is that thread too.
+// launch's blocks one after the other with one thread. A block's sum, max
+// and prefix over its one thread are the thread's own value, it and 0; the
+// warp that factors the reduced system is that thread too; the blocks take
+// their tickets in block order, so ba_backsub's last block runs its tail.
 // tests/test_torch_ba_gn.py builds it with g++ into build/kernels/ and runs
 // ops/ba.py's launch sequence on it.
 //
@@ -22,6 +23,8 @@ struct HostBlock {
   void sync() {}
   void warp_sync() {}
   float sum(float v) { return v; }
+  float max(float v) { return v; }
+  bool last(int* ticket) { return (*ticket)++ == nblk - 1; }
   int scan(int v, int* total) {
     *total = v;
     return 0;
@@ -64,11 +67,6 @@ int ba_backsub_launch(const ba_gn::Args* a, int it, void*) {
   std::vector<float> smem(ba_gn::tile_floats(a->K, ba_gn::max_opt(a->K, a->n_fix)));
   ba_gn::Slots s;
   blocks(a->n_blocks, [&](HostBlock& b) { ba_gn::backsub_block(*a, b, s, smem.data(), it); });
-  return 0;
-}
-
-int ba_apply_launch(const ba_gn::Args* a, int it, void*) {
-  blocks(1, [&](HostBlock& b) { ba_gn::apply_block(*a, b, it); });
   return 0;
 }
 

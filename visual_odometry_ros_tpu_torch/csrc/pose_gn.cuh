@@ -5,7 +5,8 @@
 // (csrc/pose_gn_host.cpp) that the CPU tests run against the plain PyTorch
 // version, so that a formula or branch error shows without a card. Both run
 // the same code below; they differ only in `Blk`, which supplies the
-// thread's index, the thread count, a barrier and the block-wide sums.
+// thread's index, the thread count and the block-wide sums (returned to
+// every thread; the only barrier of an iteration is inside the sum).
 //
 // Semantics: the plain versions in ops/pose_gn.py (`_pose_gn_core`,
 // `pose_only_gn_mono_ref`, `pose_only_gn_stereo_ref`, `_reproj_err_px` and
@@ -50,28 +51,38 @@ struct Args {
   int* n_iter;        // [1]
 };
 
-// What one thread computes and every thread reads.
-struct Shared {
+// A GN loop's state. Every thread holds it and takes every step itself, on
+// the same block sums, so every thread holds the same state bit for bit.
+struct State {
   float T[16];  // the solve's current pose
   float prev_cost;
   int it;
-  int done;
-  float red[32];  // the block sums of the last `sum`
+  bool done;
 };
 
 constexpr float kEps2 = (float)(1e-7 * 1e-7);         // _EPS * _EPS
 constexpr float kEps3 = (float)(1e-7 * 1e-7 * 1e-7);  // _EPS ** 3
 constexpr int kSums = 28;                              // cost, 21 of H's upper triangle, 6 of g
+constexpr int kCount = kSums;                          // then the weighted points, in the same sum
+constexpr int kMaxSolves = 8;                          // solves a launch takes, one block each
 
 struct Pass {  // what one solve returns
   float T[16];
   float mean_err;
   bool ok;
   int it;
+  float count;    // the weighted points
+  float extra;    // robust: the valid points within reproj_thresh under T_prior (pass 1) or T (pass 2)
+  float carried;  // the sum of the threads' `carried` counts
 };
 
 PG_HD void copy16(const float* a, float* b) {
   for (int i = 0; i < 16; ++i) b[i] = a[i];
+}
+
+// out = c ? x : y, entry by entry (register arrays stay in registers).
+PG_HD void select16(bool c, const float* x, const float* y, float* out) {
+  for (int i = 0; i < 16; ++i) out[i] = c ? x[i] : y[i];
 }
 
 PG_HD bool all_finite16(const float* T) {
@@ -230,10 +241,12 @@ PG_HD void add_front_se3(const float* xi, float* T) {
   copy16(out, T);
 }
 
-// One iteration's step, by one thread, from the block sums `s` (cost, H's
-// upper triangle row by row, g): damping, solve, update, stop test.
-PG_HD void step(const Args& a, const float* s, float n_valid, Shared& sh) {
-  float cost = s[0] / n_valid;
+// One iteration's step from the block sums `s` (cost, H's upper triangle
+// row by row, g, the weighted points): damping, solve, update, stop test.
+// Every thread takes it on the same sums, so every thread holds the same
+// state bit for bit and nothing is published.
+PG_HD void step(const Args& a, const float* s, State& st) {
+  float cost = s[0] / fmaxf(s[kCount], 1.0f);
   float H[6][6], g[6], dxi[6];
   int k = 1;
   for (int i = 0; i < 6; ++i)
@@ -249,43 +262,36 @@ PG_HD void step(const Args& a, const float* s, float n_valid, Shared& sh) {
     bad = bad || !isfinite(dxi[i]);
     n2 += dxi[i] * dxi[i];
   }
-  if (!bad) add_front_se3(dxi, sh.T);
-  bool converged = (sqrtf(n2) < a.step_tol) || (fabsf(sh.prev_cost - cost) < a.cost_tol * (cost + 1e-9f));
-  sh.prev_cost = cost;
-  sh.it += 1;
-  sh.done = converged || bad;
+  if (!bad) add_front_se3(dxi, st.T);
+  bool converged = (sqrtf(n2) < a.step_tol) || (fabsf(st.prev_cost - cost) < a.cost_tol * (cost + 1e-9f));
+  st.prev_cost = cost;
+  st.it += 1;
+  st.done = converged || bad;
 }
 
 // _pose_gn_core from T_start over the pass's masks: the damped GN loop
-// `while it < max_iters and not done`, then the inlier test, mean error and
-// ok of the result. Writes the inlier mask when the launch is one pass.
+// `while it < max_iters and not done` (one walk and one sum an iteration;
+// the sum also counts the weighted points, what the cost divides by), then
+// one walk for the inlier test, mean error and ok of the result, which
+// also counts the weighted points and, in a robust launch, `extra`: the
+// valid points within reproj_thresh under T_prior (pass 1) or under the
+// pass's own pose (pass 2), and adds each thread's `carried` count into the
+// same sum. Writes the inlier mask when the launch is one pass.
 template <int R, class Blk>
-PG_HD Pass solve(const Args& a, Blk& b, Shared& sh, const float* T_start, bool second) {
-  float nv[1] = {0.0f};
-  for (int i = b.tid; i < a.N; i += b.nthr) {
-    bool wl, wr;
-    masks(a, i, second, wl, wr);
-    nv[0] += wl ? 1.0f : 0.0f;
-  }
-  b.sum(nv);
-  float n_valid = fmaxf(nv[0], 1.0f);
-  if (b.tid == 0) {
-    copy16(T_start, sh.T);
-    sh.prev_cost = INFINITY;
-    sh.it = 0;
-    sh.done = 0;
-  }
-  b.sync();
-  while (sh.it < a.max_iters && !sh.done) {
-    float T[16];
-    copy16(sh.T, T);
-    float acc[kSums];
-    for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
+PG_HD Pass solve(const Args& a, Blk& b, const float* T_start, const float* T_prior, bool second, float carried) {
+  State st;
+  copy16(T_start, st.T);
+  st.prev_cost = INFINITY;
+  st.it = 0;
+  st.done = false;
+  while (st.it < a.max_iters && !st.done) {
+    float acc[kSums + 1];
+    for (int k = 0; k <= kSums; ++k) acc[k] = 0.0f;
     for (int i = b.tid; i < a.N; i += b.nthr) {
       bool wl, wr;
       masks(a, i, second, wl, wr);
       float r[R], J[R][6];
-      rows<R>(a, T, i, wl, wr, r, J);
+      rows<R>(a, st.T, i, wl, wr, r, J);
       float r2 = 0.0f;
       for (int k = 0; k < R; ++k) r2 += r[k] * r[k];
       float rn = sqrtf(r2 + 1e-12f);
@@ -300,15 +306,17 @@ PG_HD Pass solve(const Args& a, Blk& b, Shared& sh, const float* T_start, bool s
           acc[22 + p] += jw * r[k];
         }
       }
+      acc[kCount] += wl ? 1.0f : 0.0f;
     }
     b.sum(acc);
-    if (b.tid == 0) step(a, acc, n_valid, sh);
-    b.sync();
+    step(a, acc, st);
   }
   Pass out;
-  copy16(sh.T, out.T);
-  out.it = sh.it;
-  float ev[2] = {0.0f, 0.0f};  // sum of err over the valid points, inliers
+  copy16(st.T, out.T);
+  out.it = st.it;
+  float Tx[16];
+  select16(second, out.T, T_prior, Tx);
+  float ev[5] = {0.0f, 0.0f, 0.0f, 0.0f, carried};  // error over the weighted points, inliers, weighted, extra, carried
   for (int i = b.tid; i < a.N; i += b.nthr) {
     bool wl, wr;
     masks(a, i, second, wl, wr);
@@ -318,26 +326,38 @@ PG_HD Pass solve(const Args& a, Blk& b, Shared& sh, const float* T_start, bool s
     for (int k = 0; k < R; ++k) r2 += r[k] * r[k];
     float e = sqrtf(r2 / (float)(R / 2));
     bool inl = wl && e < a.reproj_thresh;
-    ev[0] += e * (wl ? 1.0f : 0.0f);
+    ev[0] += wl ? e : 0.0f;  // as the plain version: a non-finite error of an unweighted point adds nothing
     ev[1] += inl ? 1.0f : 0.0f;
-    if (a.passes == 1) a.inliers[i] = inl;
+    ev[2] += wl ? 1.0f : 0.0f;
+    if (a.passes == 1)
+      a.inliers[i] = inl;
+    else
+      ev[3] += (a.valid_l[i] && reproj_err(a, Tx, i) < a.reproj_thresh) ? 1.0f : 0.0f;
   }
   b.sum(ev);
+  const float n_valid = fmaxf(ev[2], 1.0f);
   out.mean_err = ev[0] / n_valid;
   out.ok = all_finite16(out.T) && (ev[1] / n_valid >= a.min_inlier_ratio) && (ev[1] >= (float)a.min_inliers) &&
            isfinite(out.mean_err);
+  out.count = ev[2];
+  out.extra = ev[3];
+  out.carried = ev[4];
   return out;
 }
 
-// The whole launch: one solve, or the robust two-pass solve of
+// The whole solve: one pass, or the robust two-pass solve of
 // pose_only_gn_{stereo,mono}_robust (pass 1, the hard gate under the better
 // of {pass-1 pose, prior}, pass 2 on the survivors, arbitration on inlier
-// counts over the common point set and against the prior).
+// counts over the common point set and against the prior). Outside the
+// iterations a robust solve walks the points four times (the two passes'
+// evaluations, the gate, the final errors) and takes three block sums: the
+// gate's count rides in pass 2's evaluation sum, and the valid points and
+// the prior's inliers in pass 1's.
 template <int R, class Blk>
-PG_HD void run_rows(const Args& a, Blk& b, Shared& sh) {
+PG_HD void run_rows(const Args& a, Blk& b) {
   float T0[16];
   copy16(a.T_init, T0);
-  Pass p1 = solve<R>(a, b, sh, T0, false);
+  Pass p1 = solve<R>(a, b, T0, T0, false, 0.0f);
   if (a.passes == 1) {
     if (b.tid == 0) {
       copy16(p1.T, a.T_out);
@@ -348,47 +368,43 @@ PG_HD void run_rows(const Args& a, Blk& b, Shared& sh) {
     return;
   }
   float T1[16];
-  copy16(p1.ok ? p1.T : T0, T1);
-  float n12[2] = {0.0f, 0.0f};  // valid points within reproj_thresh under T1, under pass 2's pose
+  select16(p1.ok, p1.T, T0, T1);
+  float n1 = 0.0f;  // valid points within reproj_thresh under T1 (this thread's; summed by pass 2)
   for (int i = b.tid; i < a.N; i += b.nthr) {
     float e = reproj_err(a, T1, i);
     a.inliers[i] = a.valid_l[i] && e < a.gate_thresh;  // keep
-    n12[0] += (a.valid_l[i] && e < a.reproj_thresh) ? 1.0f : 0.0f;
+    n1 += (a.valid_l[i] && e < a.reproj_thresh) ? 1.0f : 0.0f;
   }
-  Pass p2 = solve<R>(a, b, sh, T1, true);
-  for (int i = b.tid; i < a.N; i += b.nthr)
-    n12[1] += (a.valid_l[i] && reproj_err(a, p2.T, i) < a.reproj_thresh) ? 1.0f : 0.0f;
-  b.sum(n12);
-  bool use2 = p2.ok && (!p1.ok || n12[1] >= n12[0]);
+  Pass p2 = solve<R>(a, b, T1, T1, true, n1);
+  bool use2 = p2.ok && (!p1.ok || p2.extra >= p2.carried);
   float T[16];
-  copy16(use2 ? p2.T : (p1.ok ? p1.T : T0), T);
-  float c3[3] = {0.0f, 0.0f, 0.0f};  // n_fin, n_prior, valid points
+  select16(p1.ok, p1.T, T0, T);
+  select16(use2, p2.T, T, T);
+  float n_fin[1] = {0.0f};
   for (int i = b.tid; i < a.N; i += b.nthr) {
     float e = reproj_err(a, T, i);
-    bool v = a.valid_l[i];
+    bool inl = a.valid_l[i] && e < a.reproj_thresh;
     a.err[i] = e;
-    a.inliers[i] = v && e < a.reproj_thresh;
-    c3[0] += (v && e < a.reproj_thresh) ? 1.0f : 0.0f;
-    c3[1] += (v && reproj_err(a, T0, i) < a.reproj_thresh) ? 1.0f : 0.0f;
-    c3[2] += v ? 1.0f : 0.0f;
+    a.inliers[i] = inl;
+    n_fin[0] += inl ? 1.0f : 0.0f;
   }
-  b.sum(c3);
+  b.sum(n_fin);
   if (b.tid == 0) {
-    float n_fin = c3[0], n_all = fmaxf(c3[2], 1.0f);
+    const float n = n_fin[0], n_all = fmaxf(p1.count, 1.0f);
     copy16(T, a.T_out);
     *a.mean_err = use2 ? p2.mean_err : p1.mean_err;
-    *a.ok = (p1.ok || p2.ok) && n_fin >= (float)a.min_inliers && (n_fin / n_all >= a.min_inlier_ratio) &&
-            (n_fin + 2.0f >= c3[1]);
+    *a.ok = (p1.ok || p2.ok) && n >= (float)a.min_inliers && (n / n_all >= a.min_inlier_ratio) &&
+            (n + 2.0f >= p1.extra);
     *a.n_iter = p1.it + p2.it;
   }
 }
 
 template <class Blk>
-PG_HD void run(const Args& a, Blk& b, Shared& sh) {
+PG_HD void run(const Args& a, Blk& b) {
   if (a.stereo)
-    run_rows<4>(a, b, sh);
+    run_rows<4>(a, b);
   else
-    run_rows<2>(a, b, sh);
+    run_rows<2>(a, b);
 }
 
 }  // namespace pose_gn

@@ -11,8 +11,9 @@ the sums that cross landmarks are all-reduced over the group
 
 The reference runs its GN loop as a `lax.while_loop` on the device. Here,
 on CUDA tensors, the solve is the hand-written kernels `ba_terms`,
-`ba_solve`, `ba_backsub` and `ba_apply` (csrc/ba_gn.cu, algorithm in
-csrc/ba_gn.cuh), the anchoring and the write-back included: a single-device
+`ba_solve` and `ba_backsub`, whose last block runs the apply step
+(csrc/ba_gn.cu, algorithm in csrc/ba_gn.cuh), the anchoring and the
+write-back included: a single-device
 solve enqueues `launches_per_solve(iters)` launches and reads nothing back;
 iterations after the stop are no-ops on the device. The plain PyTorch
 version, `ba_solve_ref`, defines the semantics and is the CPU route;
@@ -397,10 +398,11 @@ _SUM, _SOLVE = 1, 2  # ba_solve phases
 
 def launches_per_solve(iters: int) -> int:
     """Kernel launches a single-device solve of `iters` iterations enqueues:
-    the starting error, four per iteration (whether or not the loop has
-    stopped: a stopped iteration's launches return at once), the final
-    error. A group solve of n iterations run makes 5 n + 2."""
-    return 4 * iters + 2
+    the starting error, three per iteration (ba_terms, ba_solve and
+    ba_backsub, whose last block runs the apply step; whether or not the
+    loop has stopped: a stopped iteration's launches return at once), the
+    final error. A group solve of n iterations run makes 4 n + 2."""
+    return 3 * iters + 2
 
 
 def n_part(n: int) -> int:
@@ -429,7 +431,8 @@ class _Args(ctypes.Structure):
                                         "kill_dist")),
         *((n, ctypes.c_int) for n in ("iters", "n_fix", "min_obs", "group", "n_blocks")),
         *((n, ctypes.c_void_p) for n in ("T_out", "X_out", "killed", "T", "X", "stop_at", "active", "list", "n_act",
-                                         "part", "err_part", "sys", "dx", "T_new", "dx_bad", "dy", "dy_bad")),
+                                         "part", "err_part", "sys", "dx", "T_new", "dx_bad", "dy", "dy_bad",
+                                         "ticket")),
     ]
 
 
@@ -473,7 +476,7 @@ def _result(outs: dict, e0, e1) -> BAResult:
 def _ba_kernels(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams, group, info, lib,
                 launch=None, stream=None) -> BAResult:
     """The kernel route: the launch sequence of csrc/ba_gn.cuh through
-    `lib`'s four launchers, `launch(name, c_fn, argv)` per launch (default
+    `lib`'s three launchers, `launch(name, c_fn, argv)` per launch (default
     `kernels.launch`, which counts it). The first launch anchors the problem
     and the last writes it back. On one device nothing is read back (`info`,
     where given, reads the iteration count once at the end). With a group,
@@ -497,7 +500,7 @@ def _ba_kernels(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams, grou
     bufs = dict(T=empty(16 * K), X=empty(3 * M), stop_at=stop_at, active=empty(M, torch.bool),
                 list=empty(M, torch.int32), n_act=empty(1, torch.int32), part=empty(G * n_part(most)),
                 err_part=err_part, sys=sys_, dx=empty(6 * K), T_new=empty(16 * K), dx_bad=empty(1, torch.int32),
-                dy=empty(3 * M), dy_bad=empty(G, torch.int32))
+                dy=empty(3 * M), dy_bad=empty(G, torch.int32), ticket=empty(1, torch.int32))
     args = _Args(**{k: v.data_ptr() for k, v in {**ins, **outs, **bufs}.items()}, M=M, K=K, fx=float(fx),
                  fy=float(fy), cx=float(cx), cy=float(cy), huber_delta=float(params.huber_delta),
                  lam=float(params.lam), max_trans_update=float(params.max_trans_update),
@@ -525,7 +528,6 @@ def _ba_kernels(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams, grou
             system.copy_(_all_reduce(system, group=group)[0])
             go("ba_solve", it, _SOLVE)
         go("ba_backsub", it)
-        go("ba_apply", it)
         if group is not None and int(stop_at) == it + 1:
             break
     go("ba_terms", -1, _ERR_FINAL)

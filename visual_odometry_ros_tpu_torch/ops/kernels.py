@@ -1,6 +1,6 @@
 """Build, launch counting and input checks shared by the hand-written CUDA
 kernels of `csrc/` (`klt_pyr`, `klt_scale` in klt.cu; `pose_gn` in
-pose_gn.cu; `ba_terms`, `ba_solve`, `ba_backsub`, `ba_apply` in ba_gn.cu).
+pose_gn.cu; `ba_terms`, `ba_solve`, `ba_backsub` in ba_gn.cu).
 
 `build()` compiles every `csrc/*.cu` in one nvcc call for sm_90a into one
 shared library with a plain C interface under `build/kernels/` at the
@@ -27,8 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-LAUNCHES = {"klt_pyr": 0, "klt_scale": 0, "pose_gn": 0, "ba_terms": 0, "ba_solve": 0, "ba_backsub": 0,
-            "ba_apply": 0}
+LAUNCHES = {"klt_pyr": 0, "klt_scale": 0, "pose_gn": 0, "ba_terms": 0, "ba_solve": 0, "ba_backsub": 0}
 
 _LIB = None
 BUILD_INFO: dict = {}
@@ -71,7 +70,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.klt_pyr_launch.restype = I
     lib.klt_scale_launch.argtypes = [P, P, I, I, P, P, P, P, I, I, I, F, P, P, P, P]
     lib.klt_scale_launch.restype = I
-    lib.pose_gn_launch.argtypes = [P, P]
+    lib.pose_gn_launch.argtypes = [P, I, P]
     lib.pose_gn_launch.restype = I
     lib.ba_occupancy.argtypes = [I, I, ctypes.POINTER(I)]
     lib.ba_occupancy.restype = I
@@ -79,15 +78,14 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def bind_ba(lib: ctypes.CDLL) -> None:
-    """Argument types of ba_gn.cu's four launchers and `ba_layout` (the
+    """Argument types of ba_gn.cu's three launchers and `ba_layout` (the
     one-thread host build, csrc/ba_gn_host.cpp, exports them under the same
     names); then ops/ba.check_layout, which raises if ops/ba.py's copy of the
     kernels' layout differs from the library's."""
     from .ba import check_layout
 
     P, I = ctypes.c_void_p, ctypes.c_int
-    for name, argv in (("ba_terms", [P, I, I, P]), ("ba_solve", [P, I, I, P]), ("ba_backsub", [P, I, P]),
-                       ("ba_apply", [P, I, P])):
+    for name, argv in (("ba_terms", [P, I, I, P]), ("ba_solve", [P, I, I, P]), ("ba_backsub", [P, I, P])):
         fn = getattr(lib, name + "_launch")
         fn.argtypes = argv
         fn.restype = I

@@ -121,7 +121,13 @@ def pnp_ransac(Xw, pts, valid, fx, fy, cx, cy, thresh_px: float = 3.0, n_hypothe
     inl2 = (err < 2.0 * thresh_px) & front
     best = torch.argmax(torch.sum(inl, dim=1))
     T_best = T_h[best]
-    res = PG.pose_only_gn_mono(Xw, pts, inl2[best], fx, fy, cx, cy, T_best, gn_params)
+    polish = (Xw, pts, inl2[best], fx, fy, cx, cy, T_best)
+    if T_init is None:
+        res = PG.pose_only_gn_mono(*polish, gn_params)
+    else:
+        # Polish the prior over ALL valid points too (both solves in one
+        # launch), then keep whichever final pose explains more points.
+        res, res_p = PG.pose_only_gn_mono_many([polish, (Xw, pts, valid, fx, fy, cx, cy, T_init)], gn_params)
     T_final = torch.where(res.ok, res.T10, T_best)
 
     def count_inl(T):
@@ -129,9 +135,6 @@ def pnp_ransac(Xw, pts, valid, fx, fy, cx, cy, thresh_px: float = 3.0, n_hypothe
         return torch.sum((e < thresh_px) & (zz > 0.01) & valid)
 
     if T_init is not None:
-        # Polish the prior over ALL valid points too, then keep whichever
-        # final pose explains more points.
-        res_p = PG.pose_only_gn_mono(Xw, pts, valid, fx, fy, cx, cy, T_init, gn_params)
         T_prior = torch.where(torch.all(torch.isfinite(res_p.T10)), res_p.T10, T_init)
         T_final = torch.where(count_inl(T_prior) > count_inl(T_final), T_prior, T_final)
 

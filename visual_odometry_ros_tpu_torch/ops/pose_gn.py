@@ -7,7 +7,9 @@ hand-written kernel `pose_gn` (csrc/pose_gn.cu) computes a whole solve on
 the card: one pass (`pose_only_gn_mono`, `pose_only_gn_stereo`) or the
 robust two-pass solve with its gate and arbitration
 (`pose_only_gn_stereo_robust`, `pose_only_gn_mono_robust`), outputs left on
-the device, no host sync.
+the device, no host sync. `pose_only_gn_mono_many` takes several
+independent one-pass mono solves in one launch, one block each (PnP's two
+polishes); the reference calls `pose_only_gn_mono` once for each.
 
 The plain PyTorch versions (`*_ref`) define the semantics. Their loop runs
 on the host and checks its stop flag once every `_CHECK_EVERY` iterations:
@@ -29,6 +31,7 @@ from .kernels import build, check, one_device
 from .kernels import launch as _launch
 
 _CHECK_EVERY = 4
+MAX_SOLVES = 8  # kMaxSolves of csrc/pose_gn.cuh: the solves one launch takes
 
 
 class PoseGNParams(NamedTuple):
@@ -117,7 +120,10 @@ def _pose_gn_core(residual_fn, T_init, valid, params: PoseGNParams, n_rows: int,
     r, _ = residual_fn(T)
     err = torch.sqrt(torch.sum(r * r, dim=-1) / (n_rows // 2))
     inliers = valid & (err < params.reproj_thresh)
-    mean_err = torch.sum(err * w_valid) / n_valid
+    # The mean over the valid points only: an invalid point's error adds
+    # nothing even where it is not finite (the reference's XLA rewrites its
+    # product with the 0/1 weight into a select).
+    mean_err = torch.sum(torch.where(valid, err, 0.0)) / n_valid
     n_inl = torch.sum(inliers)
     ok = (
         torch.all(torch.isfinite(T))
@@ -355,16 +361,18 @@ def _pack(X0, pts_l, pts_r, valid_l, valid_r, T_rl, T_init, fx, fy, cx, cy,
     return PoseGNResult(T, inliers, mean_err, ok, n_iter), err, args
 
 
-def _pg_launch(*inputs):
-    """One pose_gn launch on CUDA tensors (`_pack`'s arguments). Returns
-    (PoseGNResult, err [N] or None for one pass), all on the device."""
+def _pg_launch(solves):
+    """One pose_gn launch on CUDA tensors: block i takes solves[i] (`_pack`'s
+    arguments). Returns [(PoseGNResult, err [N] or None for one pass)], all
+    on the device."""
     lib = build()
-    res, err, args = _pack(*inputs)
-    dev = inputs[0].device
+    packed = [_pack(*s) for s in solves]
+    args = (_Args * len(packed))(*(p[2] for p in packed))
+    dev = solves[0][0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("pose_gn", lib.pose_gn_launch, (ctypes.byref(args), stream))
-    return res, err
+        _launch("pose_gn", lib.pose_gn_launch, (args, len(packed), stream))
+    return [(res, err) for res, err, _ in packed]
 
 
 def pose_only_gn_mono(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
@@ -374,7 +382,7 @@ def pose_only_gn_mono(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
     valid [N] bool, T_10_init [4, 4]; float32, contiguous, one device."""
     if _device(X0, pts1, valid, T_10_init).type == "cpu":
         return pose_only_gn_mono_ref(X0, pts1, valid, fx, fy, cx, cy, T_10_init, params)
-    return _pg_launch(X0, pts1, None, valid, None, None, T_10_init, fx, fy, cx, cy, params, 1, 0.0)[0]
+    return _pg_launch([(X0, pts1, None, valid, None, None, T_10_init, fx, fy, cx, cy, params, 1, 0.0)])[0][0]
 
 
 def pose_only_gn_stereo(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl, T_10_init,
@@ -385,8 +393,8 @@ def pose_only_gn_stereo(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_
     if _device(X0, pts_l1, valid_l, T_10_init, pts_r1, valid_r, T_rl).type == "cpu":
         return pose_only_gn_stereo_ref(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl,
                                        T_10_init, params)
-    return _pg_launch(X0, pts_l1, pts_r1, valid_l, valid_r, T_rl, T_10_init, fx, fy, cx, cy, params,
-                      1, 0.0)[0]
+    return _pg_launch([(X0, pts_l1, pts_r1, valid_l, valid_r, T_rl, T_10_init, fx, fy, cx, cy, params, 1,
+                        0.0)])[0][0]
 
 
 def pose_only_gn_stereo_robust(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy, T_rl,
@@ -399,8 +407,8 @@ def pose_only_gn_stereo_robust(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx,
     if _device(X0, pts_l1, valid_l, T_10_init, pts_r1, valid_r, T_rl).type == "cpu":
         return pose_only_gn_stereo_robust_ref(X0, pts_l1, pts_r1, valid_l, valid_r, fx, fy, cx, cy,
                                               T_rl, T_10_init, params, gate_scale)
-    return _pg_launch(X0, pts_l1, pts_r1, valid_l, valid_r, T_rl, T_10_init, fx, fy, cx, cy, params,
-                      2, gate_scale)
+    return _pg_launch([(X0, pts_l1, pts_r1, valid_l, valid_r, T_rl, T_10_init, fx, fy, cx, cy, params, 2,
+                        gate_scale)])[0]
 
 
 def pose_only_gn_mono_robust(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
@@ -410,5 +418,26 @@ def pose_only_gn_mono_robust(X0, pts1, valid, fx, fy, cx, cy, T_10_init,
     if _device(X0, pts1, valid, T_10_init).type == "cpu":
         return pose_only_gn_mono_robust_ref(X0, pts1, valid, fx, fy, cx, cy, T_10_init, params,
                                             gate_scale)
-    return _pg_launch(X0, pts1, None, valid, None, None, T_10_init, fx, fy, cx, cy, params, 2,
-                      gate_scale)
+    return _pg_launch([(X0, pts1, None, valid, None, None, T_10_init, fx, fy, cx, cy, params, 2,
+                        gate_scale)])[0]
+
+
+def pose_only_gn_mono_many_ref(solves, params: PoseGNParams = PoseGNParams(),
+                               counts: dict | None = None) -> list:
+    """The plain version of `pose_only_gn_mono_many`: the solves in turn."""
+    return [pose_only_gn_mono_ref(*s, params, counts=counts) for s in solves]
+
+
+def pose_only_gn_mono_many(solves, params: PoseGNParams = PoseGNParams()) -> list:
+    """Several independent `pose_only_gn_mono` solves in one launch, one
+    block each. `solves`: 1 to MAX_SOLVES tuples (X0, pts1, valid, fx, fy,
+    cx, cy, T_10_init), all on one device. Returns their PoseGNResults in
+    order, each equal to its own `pose_only_gn_mono` call."""
+    if not 1 <= len(solves) <= MAX_SOLVES:
+        raise ValueError(f"pose_only_gn_mono_many: 1 to {MAX_SOLVES} solves, got {len(solves)}")
+    for s in solves:
+        _device(s[0], s[1], s[2], s[7])
+    if one_device([s[0] for s in solves]).type == "cpu":
+        return pose_only_gn_mono_many_ref(solves, params)
+    return [res for res, _ in _pg_launch([(X0, pts1, None, valid, None, None, T_init, fx, fy, cx, cy, params, 1,
+                                           0.0) for X0, pts1, valid, fx, fy, cx, cy, T_init in solves])]

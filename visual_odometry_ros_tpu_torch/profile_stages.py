@@ -65,7 +65,7 @@ STAGE_KEYS = (
     "rep_descriptors", "keyframe_ba", "ba_solve",
 )
 KERNELS = {"klt_pyr": "klt_pyr_kernel", "klt_scale": "klt_scale_kernel", "pose_gn": "pose_gn_kernel",
-           **{k: f"{k}_kernel" for k in ("ba_terms", "ba_solve", "ba_backsub", "ba_apply")}}
+           **{k: f"{k}_kernel" for k in ("ba_terms", "ba_solve", "ba_backsub")}}
 WINDOW_LABEL = "vo_profile_window"
 MONO_FRAMES = 49  # --mono: the first HardSequence frames, as chip_smoke's mono path
 MONO_BATCH = 12  # mono frames per track_batch call: the warm-up's and the profiled one's
