@@ -107,12 +107,13 @@ and read just after; every KLT and pose kernel must have run on every path,
 pose_gn once for each solve of the public pose functions less one for each
 pair (a recovery's two PnP polishes share one launch), and the ba_* kernels
 3 iters + 2 times (ba_terms iters + 2, ba_solve and ba_backsub iters; the
-apply step is ba_backsub's tail) for each single-device window BA solve
-(both counted by wrappers around them over phases 4-13), checked per
-keyframe step on the per-frame and mono paths. The last two lines are the
-kernel table (its ba_apply row says that the apply step runs as the tail
-of ba_backsub's launch, with no launch and no ms of its own, and
-ba_backsub's row holds that launch against both jobs' bound; launches of
+apply step has no launch of its own: ba_solve takes the poses, ba_backsub's
+blocks Xr += dy and its last block the decision) for each single-device
+window BA solve (both counted by wrappers around them over phases 4-13),
+checked per keyframe step on the per-frame and mono paths. The last two
+lines are the kernel table (its ba_apply row says where the apply step
+runs, with no launch and no ms of its own, and ba_backsub's row holds that
+launch against both jobs' bound; launches of
 the serving, mono (with the blackout run), image-level KLT, CLI,
 accuracy-leg and A/B kernel-leg paths) and {"ok": true,
 "device": ...}. This script imports no JAX.
@@ -175,7 +176,8 @@ BA_KTOL = {"T_cw": 2e-4, "Xw": 2e-3, "err": 1e-3, "err0": 1e-5}
 BA_LOG_MAX = 8  # BA solves a phase records
 BA_KERNELS = ("ba_terms", "ba_solve", "ba_backsub")  # the launches of a solve
 # The parts of a solve whose work, bound and plain share are counted: the
-# kernels, and the apply step that ba_backsub's last block runs as its tail.
+# kernels, and the apply step, which runs inside ba_backsub's launch (Xr +=
+# dy in its blocks, the decision in its last) and ba_solve's (the poses).
 BA_PARTS = (*BA_KERNELS, "ba_apply")
 
 # Per-frame path: the bench corridor at 0.25 m/frame, 1 + 24 frames, of which
@@ -798,8 +800,8 @@ def ba_launches_ok(d: dict) -> bool:
     """The ba_* launches of `d` (launch counts and BA_CALLS, or a difference
     of two such) are what its single-device solves enqueue: per solve of
     `iters` iterations, 3 iters + 2: ba_terms iters + 2 times (the errors
-    before and after), ba_solve and ba_backsub (with the apply step as its
-    tail) iters times."""
+    before and after), ba_solve and ba_backsub (the apply step inside
+    both) iters times."""
     want = {"ba_terms": d["ba_iters"] + 2 * d["ba_solves"], "ba_solve": d["ba_iters"], "ba_backsub": d["ba_iters"]}
     return all(d[k] == v for k, v in want.items())
 
@@ -1034,9 +1036,10 @@ def ba_work(problem, params, iters: int) -> dict:
     entries; a kernel's bytes are the inputs it must read and the outputs it
     must write once per solve: ba_terms the observations, points and poses
     in and, since it writes the window back, the points, kill flags and
-    poses out; ba_solve the poses; ba_backsub dy and, since its last block
-    runs the apply step, that step's work too; ba_apply the apply step
-    alone, the points in and out)."""
+    poses out; ba_solve the poses; ba_backsub dy and, since it runs the
+    apply step (its blocks Xr += dy, its last block the decision), that
+    step's work too; ba_apply the apply step alone, the points in and
+    out)."""
     from visual_odometry_ros_tpu_torch.ops import ba as BA
 
     an = BA._anchor(problem, params)
@@ -1114,7 +1117,7 @@ def plain_split_ms(problem, fx, fy, cx, cy, T_rl, params, iters: int) -> dict:
     schur_reduce with the divergence flags (ba_terms, which also takes the
     two error sums and, once, `_anchor` and `_write_back`), solve_reduced
     (ba_solve), back_substitute (ba_backsub), the guard and the update
-    (ba_apply, the tail of ba_backsub's launch)."""
+    (ba_apply, inside ba_backsub's launch)."""
     import torch
 
     from visual_odometry_ros_tpu_torch.ops import ba as BA
@@ -1274,7 +1277,8 @@ def ba_checks(cases: dict, card: str) -> dict:
     against ba_solve_ref to BA_KTOL, both against a float64 run of
     ba_solve_ref on the CPU (a witness, not a gate); then device ms per
     solve (the solve's C launcher calls replayed 20 times back to back
-    between CUDA events) and its split by kernel (torch.profiler), the
+    between CUDA events) and its split by kernel (torch.profiler), ba_backsub's
+    device us per working and per stopped launch (`ba_ab.launch_us`), the
     wrapper's host us per solve and per part (`ba_host_split`), the plain
     version's ms per solve and per kernel share, each kernel's bound from
     the problem's masks, ba_solve's library yardstick
@@ -1283,6 +1287,7 @@ def ba_checks(cases: dict, card: str) -> dict:
     Returns {name: row}."""
     import torch
 
+    from visual_odometry_ros_tpu_torch.ba_ab import launch_us
     from visual_odometry_ros_tpu_torch.ops import ba as BA
     from visual_odometry_ros_tpu_torch.ops import kernels as KN
 
@@ -1347,6 +1352,7 @@ def ba_checks(cases: dict, card: str) -> dict:
             bounds[k] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
         row.update(ms=device_ms([(c[1], c[2]) for c in calls], reps=20))
         row.update(split_ms=kernel_split_ms(calls, whole_ms=row["ms"]),
+                   backsub_us=launch_us(calls, "ba_backsub", info_k["iters"]),
                    plain_ms=cuda_ms(lambda: solve(BA.ba_solve_ref), reps=3, warmup=1),
                    plain_split_ms=plain_split_ms(problem, fx, fy, cx, cy, T_rl, params, info_k["iters"]),
                    host_us=host_us(lambda: solve(BA.ba_solve_impl), reps=20),
@@ -1361,7 +1367,10 @@ def ba_checks(cases: dict, card: str) -> dict:
         print(f"time ba_* {name} (K={K}, M={M}, {info_k['iters']} of {params.iters} iterations, "
               f"{row['launches_per_solve']} launches): device {row['ms']:.4f} ms per solve (20 back-to-back "
               f"solves), by kernel " + ", ".join(f"{k} {v:.4f}" for k, v in row["split_ms"].items())
-              + f" ms; bound {b_all:.6f} ms (" + ", ".join(f"{k} {row['bound_ms'][k]:.6f} by {row['bound_by'][k]}"
+              + f" ms (ba_backsub {row['backsub_us']['working']:.2f} us a working launch, "
+              + (f"{row['backsub_us']['stopped']:.2f} a stopped one" if row["backsub_us"]["stopped"]
+                 else "none stopped")
+              + f"); bound {b_all:.6f} ms (" + ", ".join(f"{k} {row['bound_ms'][k]:.6f} by {row['bound_by'][k]}"
                                                          for k in BA_KERNELS)
               + f"; of ba_backsub's, the apply step {row['bound_ms']['ba_apply']:.6f}"
               + f"); plain {row['plain_ms']:.3f} ms per solve (by share " + ", ".join(
@@ -2154,7 +2163,7 @@ def dist_ba_path(card) -> dict:
     assert all_reduces == info_d["iters"] + 2, row
     # The group solve on the ba_* kernels, 4 n + 2 launches: per iteration
     # run ba_solve twice (the partials' sum, then the solve, around the
-    # all-reduce) and ba_backsub once, with the apply step as its tail.
+    # all-reduce) and ba_backsub once, the apply step's decision its end.
     n = info_d["iters"]
     assert group_launches == {"ba_terms": n + 2, "ba_solve": 2 * n, "ba_backsub": n}, row
     assert np.isfinite(row["mean_err_px"]), row
@@ -2497,10 +2506,11 @@ def main() -> int:
     # ba_*: the stereo keyframe step's solve, each kernel's device ms per
     # solve (its launches summed), the plain version's ms for the same share,
     # the bound of that share, and the wrapper's host time per solve. The
-    # apply step has no launch of its own: ba_backsub's last block runs it,
-    # so ba_backsub's row holds the launch's time against both jobs' bound
-    # and plain time, and the ba_apply row only describes the step (no
-    # launch and no ms of its own; its plain share and its work's bound).
+    # apply step has no launch of its own: ba_backsub's blocks add dy and its
+    # last block decides, so ba_backsub's row holds the launch's time against
+    # both jobs' bound and plain time, and the ba_apply row only describes
+    # the step (no launch and no ms of its own; its plain share and its
+    # work's bound).
     kf = ba_rows["stereo_keyframe"]
     launches["ba_apply"] = 0
     plain = dict(kf["plain_split_ms"])
@@ -2521,7 +2531,8 @@ def main() -> int:
             "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
             "library_ms": timing[name].get("library_ms"),
             "host_ms": None if timing[name]["host_us"] is None else timing[name]["host_us"] * 1e-3,
-            **({"runs_as": "the tail of ba_backsub's launch (its last block), no launch of its own"}
+            **({"runs_as": "inside ba_backsub's launch (Xr += dy in its blocks, the decision in its last block; "
+                           "ba_solve takes the poses), no launch of its own"}
                if name == "ba_apply" else {}),
         }
         for name in ("klt_pyr", "klt_scale", "pose_gn", *BA_PARTS)

@@ -328,10 +328,10 @@ def test_group_path_of_the_kernels_on_one_gloo_rank(host_lib, tmp_path):
 
 def test_binding_checks_the_kernels_layout(host_lib, monkeypatch):
     """kernels.bind_ba holds ops/ba.py's copy of ba_gn.cuh's layout (the
-    constants, n_part / n_sys, the field offsets of Args) to the library's
-    own: a drift raises instead of corrupting memory."""
+    constants, n_part / n_sys / blk_rows, the field offsets of Args) to the
+    library's own: a drift raises instead of corrupting memory."""
     TBA.check_layout(host_lib)
-    monkeypatch.setattr(TBA, "_MAX_BLOCKS", 32)
+    monkeypatch.setattr(TBA, "_TL", 32)
     with pytest.raises(RuntimeError, match="layout"):
         KN.bind_ba(host_lib)
     monkeypatch.undo()

@@ -1070,6 +1070,39 @@ def test_ba_kernels_relaunch_is_bit_identical_and_never_syncs(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["largest_k16", "dense_dryrun"])
+def test_ba_backsub_redesign_matches_plain_and_relaunches_bit_identical(dev, case):
+    """ba_backsub reading the blocks ba_terms stored, with its landmarks
+    over the grid and the decision in its last block: at the largest window
+    (K = 16, 14 optimisable slots) and on dryrun_multichip's dense window
+    (all 4096 landmarks listed, 256 tiles on the card's blocks) against
+    ba_solve_ref under the solve's tolerances; two solves without a host
+    sync, bit-identical."""
+    from visual_odometry_ros_tpu_torch.ops import ba as BA
+    from visual_odometry_ros_tpu_torch.parallel import multihost as MH
+
+    if case == "largest_k16":
+        prob, intr, T_rl = ba_window(dev, seed=36, K=16, M=1024, n_lm=800)
+        params = BA.BAParams()
+    else:
+        p, fx, fy, cx, cy, T_rl = MH.dryrun_problem_np()
+        prob = BA.BAProblem(*(torch.as_tensor(a).to(dev) for a in p))
+        intr, T_rl, params = (fx, fy, cx, cy), torch.as_tensor(T_rl, device=dev), BA.BAParams(iters=3)
+    info_k, info_r = {}, {}
+    got = BA.ba_solve_impl(prob, *intr, T_rl, params, info=info_k)
+    ref = BA.ba_solve_ref(prob, *intr, T_rl, params, info=info_r)
+    assert_ba_close(got, ref, info_k, info_r)
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, b = BA.ba_solve_impl(prob, *intr, T_rl, params), BA.ba_solve_impl(prob, *intr, T_rl, params)
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    assert all(torch.equal(x, y) for x, y in zip(a, b)) and all(torch.equal(x, y) for x, y in zip(a, got))
+
+
+@pytest.mark.cuda
 def test_ba_kernels_refuse_what_they_cannot_serve(dev):
     from visual_odometry_ros_tpu_torch.ops import ba as BA
 

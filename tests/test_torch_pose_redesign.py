@@ -204,7 +204,8 @@ def test_kernel_split_marks_the_kernels_once_and_its_copy_compiles(tmp_path):
 
     src = KSP.instrument(str(tmp_path), 128)
     text = {f: open(f"{src}/{f}").read() for f in ("pose_gn.cuh", "pose_gn.cu", "ba_gn.cuh")}
-    assert [text[f].count("KS(") for f in text] == [6, 2, 5]
+    assert [text[f].count("KS(") for f in text] == [6, 2, 9]
+    assert text["ba_gn.cuh"].count("KS_CLOCK(") == text["ba_gn.cuh"].count("KS_AT(") == 1
     assert "constexpr int kThreads = 128;" in text["pose_gn.cu"]
     assert "ks_read_ba_gn" in open(f"{src}/ba_gn.cu").read()
     cxx = shutil.which("g++")

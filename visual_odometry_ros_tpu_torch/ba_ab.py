@@ -9,6 +9,9 @@ helpers, as phase 3 times them:
   - device ms per solve (`device_ms`: the solve's C launcher calls replayed
     back to back between CUDA events) and its split by kernel
     (`kernel_split_ms`: torch.profiler's kernel events);
+  - `ba_backsub`'s device us per working launch and per stopped one
+    (`launch_us`: the profiler's ba_backsub events in launch order, the
+    first `iters` of a solve's launches working, the rest stopped);
   - the first iteration's ba_solve launch split into its two phases, the
     partials' sum alone and the factor and solve alone (`cuda_ms` around a
     launch of one phase; a ba_solve launch writes nothing it reads);
@@ -38,6 +41,7 @@ import glob
 import hashlib
 import json
 import os
+import statistics
 import sys
 
 import torch
@@ -68,6 +72,35 @@ def solve_phase_ms(cs, calls) -> dict:
             for name, phase in (("sum", BA._SUM), ("solve", BA._SOLVE))}
 
 
+def launch_us(calls, name: str, n_working: int, reps: int = 5) -> dict:
+    """Device us of each launch of kernel `name` in a replay of `calls` (C
+    launcher calls of one solve): torch.profiler's events of `name`_kernel
+    in launch order over `reps` replays, medians over the launches that did
+    work (the first `n_working` of a replay) and over the rest (None where
+    there is none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    per = sum(1 for c in calls if c[0] == name)
+    for _ in range(3):  # the profiler now and then records no kernel event: take it again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for _, fn, argv in calls:
+                    fn(*argv)
+            torch.cuda.synchronize()
+        ev = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA and f"{name}_kernel" in e.name())
+        if len(ev) == per * reps:
+            break
+    else:
+        raise AssertionError(f"launch_us: {len(ev)} {name} events for {reps} replays of {per} launches")
+    us = [(e - s) * 1e-3 for s, e in ev]
+    working = [t for i, t in enumerate(us) if i % per < n_working]
+    stopped = [t for i, t in enumerate(us) if i % per >= n_working]
+    return {"working": statistics.median(working) if working else None,
+            "stopped": statistics.median(stopped) if stopped else None, "launches": per, "working_launches": n_working}
+
+
 def time_problem(path: str, dev) -> dict:
     cs = smoke()
     args, kwargs = torch.load(path, weights_only=False)
@@ -81,7 +114,8 @@ def time_problem(path: str, dev) -> dict:
     calls, held = cs.recorded_launches(solve)
     row = {"problem": os.path.splitext(os.path.basename(path))[0], "K": int(args[0].T_cw.shape[0]),
            "iters": info["iters"], "launches": len(calls), "ms": cs.device_ms([c[1:] for c in calls], reps=20),
-           "split_ms": cs.kernel_split_ms(calls), "solve_phase_ms": solve_phase_ms(cs, calls),
+           "split_ms": cs.kernel_split_ms(calls), "backsub_us": launch_us(calls, "ba_backsub", info["iters"]),
+           "solve_phase_ms": solve_phase_ms(cs, calls),
            "host_us": cs.host_us(solve, reps=20), "result_sha1": digest(res, info["iters"])}
     del held  # held until the replays are done
     return row

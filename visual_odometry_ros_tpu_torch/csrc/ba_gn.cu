@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the Gauss-Newton loop of
 // sliding-window bundle adjustment: ba_terms, ba_solve, ba_backsub (whose
-// last block runs the apply step).
+// last block decides the apply step).
 //
 // Replaces what the JAX package runs on the device as XLA's while loop, not
 // a Pallas kernel: the `jax.lax.while_loop(iter_cond, iteration, ...)` of
@@ -19,7 +19,7 @@
 // an iteration's operations (the per-observation rows, and the reduced
 // system's S_off over pairs of optimisable keyframes a landmark is seen in)
 // and bytes (the observations, read once) bound it at well under a
-// microsecond; the chain of each iteration is four launches, inside each a
+// microsecond; the chain of each iteration is three launches, inside each a
 // few dependent steps (chip_smoke.py computes the bound from the masks of
 // the recorded problems; PERF.md has both).
 //
@@ -30,29 +30,33 @@
 //   - only the active landmarks are walked: the first launch lists them
 //     (block 0, a block-wide prefix), the tile launches cut that list into
 //     tiles of kTL, and a block with no tile returns at once; the grid is
-//     sized to the card, not to M: at most kMaxBlocks = 132 blocks, the
-//     H100's SM count, one block on each SM there (a card with more SMs
-//     leaves the rest idle, one with fewer runs them in turns)
-//     (a tile's 42-56 KB of shared memory at K = 8-10 would let 3-4 blocks
-//     share an SM, but every block adds its partials to ba_solve's sum: at
-//     the dense dryrun window's 256 tiles, 2 blocks per SM made ba_terms
-//     faster and the sum slower by as much);
+//     sized to the card, not to M: one block on each SM (ops/ba.py reads
+//     the card's SM count; 132 on the H100) (a tile's 42-56 KB of shared
+//     memory at K = 8-10 would let 3-4 blocks share an SM, but every block
+//     adds its partials to ba_solve's sum: at the dense dryrun window's 256
+//     tiles, 2 blocks per SM made ba_terms faster and the sum slower by as
+//     much);
 //   - only the optimisable slots are summed and solved: a tile's partials
 //     hold A, a, sb and the lower block triangle of S_off over them (553
 //     floats at the stereo keyframe's 4 slots, 4081 over all 10), C and b
 //     still over every observing slot;
-//   - ba_terms never writes the per-pair blocks (B, BCinv) to device memory:
-//     a block of kTermThreads threads builds a tile of kTL landmarks in
-//     shared memory and adds its share to per-block partial sums, each entry
-//     owned by one thread; ba_backsub rebuilds the tile's blocks from the
-//     same inputs with the same code, bit for bit;
-//   - one ticket per block, and no sum taken by atomics: every ba_backsub
-//     block, with a tile or without, writes its dy and its count, fences
-//     them and takes a ticket (atomicAdd); the block that takes the last
-//     one runs the apply step (the guard, Xr += dy, T_cr, the stop test) as
-//     the launch's tail, so the apply step has no launch of its own;
+//   - ba_terms keeps the per-pair blocks (B, BCinv) in shared memory: a
+//     block of kTermThreads threads builds a tile of kTL landmarks and adds
+//     its share to per-block partial sums, each entry owned by one thread;
+//     it stores only what back-substitution reads, Cinv, b and B over the
+//     optimisable slots (12 + 18 n_opt floats a landmark, by list position:
+//     ~250 KB at the stereo keyframe, in L2 for the next launch);
+//   - ba_backsub reads those blocks and rebuilds nothing: a thread per
+//     (listed landmark, row), ten landmarks a warp, spread over the grid's
+//     first warps; it updates Xr in place (the previous Xr kept in the
+//     state's second half) and counts non-finite dy with one atomic add a
+//     warp where there is one; a spare warp takes the step's poses (T_cr
+//     kept in the state's second half too). Its blocks take a ticket
+//     (atomicAdd) and the last one only decides (the guard, the state's
+//     half, the stop test): dx's guard and the system's count come from
+//     ba_solve, so only dy's count comes from this launch;
 //   - every cross-block sum of floats is taken in block order by one owner
-//     (ba_solve sums the partials, 16 loads in flight; the tail's count of
+//     (ba_solve sums the partials, 16 loads in flight; the count of
 //     non-finite dy is an integer): a relaunch is bit-identical;
 //   - ba_solve is one block; the system of the n = 6 n_opt unknowns stays in
 //     shared memory. Up to 32 unknowns (both keyframe problems of the main
@@ -82,6 +86,33 @@ struct DeviceBlock {
   __device__ DeviceBlock() : tid(threadIdx.x), nthr(blockDim.x), bid(blockIdx.x), nblk(gridDim.x) {}
   __device__ __forceinline__ void sync() { __syncthreads(); }
   __device__ __forceinline__ void warp_sync() { __syncwarp(); }
+  __device__ __forceinline__ int lane() const { return tid & 31; }
+  __device__ __forceinline__ int warp() const { return tid >> 5; }
+  __device__ __forceinline__ int nwarps() const { return nthr >> 5; }
+
+  // ba_backsub's threads: three lanes a landmark, one row each (lanes 30
+  // and 31 hold none: landmark kLmPerWarp).
+  static constexpr int kWarp = 32, kLmPerWarp = 10, kRows = 1;
+  __device__ __forceinline__ void lm_lane(int& j, int& c) const {
+    j = lane() / 3;
+    c = lane() % 3;
+  }
+  // Every row's value v of the thread's landmark into rows[0..2], from its
+  // three lanes (the calling lane holds row c).
+  __device__ __forceinline__ void put_row(float* rows, int c, float v) const {
+    const int base = lane() - c;
+    rows[0] = __shfl_sync(0xffffffffu, v, base);
+    rows[1] = __shfl_sync(0xffffffffu, v, base + 1);
+    rows[2] = __shfl_sync(0xffffffffu, v, base + 2);
+  }
+  // The warp's landmarks with `f` set in any of their lanes.
+  __device__ __forceinline__ int landmarks_with(bool f) const {
+    const unsigned m = __ballot_sync(0xffffffffu, f);
+    int n = 0;
+    for (int g = 0; g < kLmPerWarp; ++g) n += (m >> (3 * g)) & 7u ? 1 : 0;
+    return n;
+  }
+  __device__ __forceinline__ void atomic_add(int* p, int v) const { atomicAdd(p, v); }
 
   // The block's sum of v, in every thread: warp xor shuffles, then the
   // warps' sums in warp order.
@@ -163,21 +194,17 @@ __global__ void __launch_bounds__(kSolveThreads, 1) ba_solve_kernel(const Args a
   solve_block(a, b, sh, it, phase);
 }
 
-__global__ void __launch_bounds__(kTermThreads, 2) ba_backsub_kernel(const Args a, int it) {
-  extern __shared__ float smem[];
-  __shared__ Slots s;
+__global__ void __launch_bounds__(kTermThreads) ba_backsub_kernel(const Args a, int it) {
   DeviceBlock b;
-  backsub_block(a, b, s, smem, it);
+  backsub_block(a, b, it);
 }
 
-// The tile kernels use more than 48 KB of dynamic shared memory at large K:
+// The tile kernel uses more than 48 KB of dynamic shared memory at large K:
 // opt in once, for the largest window.
 cudaError_t opt_in() {
   static cudaError_t rc = [] {
     int bytes = tile_floats(kMaxK, kMaxK) * (int)sizeof(float);
-    cudaError_t e = cudaFuncSetAttribute(ba_terms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(ba_backsub_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    return cudaFuncSetAttribute(ba_terms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   }();
   return rc;
 }
@@ -205,9 +232,7 @@ int ba_solve_launch(const ba_gn::Args* a, int it, int phase, void* stream) {
 }
 
 int ba_backsub_launch(const ba_gn::Args* a, int it, void* stream) {
-  cudaError_t e = ba_gn::opt_in();
-  if (e != cudaSuccess) return (int)e;
-  ba_gn::ba_backsub_kernel<<<a->n_blocks, ba_gn::kTermThreads, ba_gn::tile_bytes(a), (cudaStream_t)stream>>>(*a, it);
+  ba_gn::ba_backsub_kernel<<<a->n_blocks, ba_gn::kTermThreads, 0, (cudaStream_t)stream>>>(*a, it);
   return (int)cudaGetLastError();
 }
 
@@ -217,7 +242,7 @@ int ba_layout(int n, int* out, int cap) { return ba_gn::layout(n, out, cap); }
 
 // How each launch of a window of K slots (n_fix fixed) sits on the card:
 // per launch (ba_terms' tile mode, ba_terms' error modes, ba_solve,
-// ba_backsub with its tail) its registers per thread, static and dynamic
+// ba_backsub with its decision) its registers per thread, static and dynamic
 // shared bytes per block, threads per block and resident blocks per SM.
 // Writes 20 ints; returns a cudaError_t.
 int ba_occupancy(int K, int n_fix, int* out) {
@@ -229,7 +254,7 @@ int ba_occupancy(int K, int n_fix, int* out) {
   const void* fns[4] = {(const void*)ba_gn::ba_terms_kernel, (const void*)ba_gn::ba_terms_kernel,
                         (const void*)ba_gn::ba_solve_kernel, (const void*)ba_gn::ba_backsub_kernel};
   const int threads[4] = {ba_gn::kTermThreads, ba_gn::kTermThreads, ba_gn::kSolveThreads, ba_gn::kTermThreads};
-  const size_t dyn[4] = {ba_gn::tile_bytes(&a), ba_gn::err_floats(K) * sizeof(float), 0, ba_gn::tile_bytes(&a)};
+  const size_t dyn[4] = {ba_gn::tile_bytes(&a), ba_gn::err_floats(K) * sizeof(float), 0, 0};
   for (int i = 0; i < 4; ++i) {
     cudaFuncAttributes attr;
     e = cudaFuncGetAttributes(&attr, fns[i]);

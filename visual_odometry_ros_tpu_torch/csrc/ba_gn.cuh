@@ -38,30 +38,37 @@
 // Launch sequence of a single-device solve (ops/ba.py enqueues it; 3 iters + 2
 // launches, no host read):
 //   ba_terms(kErrInit)   _anchor: the masks, lm_active, opt_mask and the
-//                        start anchored at slot 0 (T_cr, Xr) into the state;
-//                        the list of active landmark slots (block 0);
-//                        stop_at = iters, the ticket counter 0; the starting
+//                        start anchored at slot 0 (T_cr, Xr) into the state's
+//                        first half; the list of active landmark slots and
+//                        the live slots' bit set (block 0); stop_at = iters,
+//                        half, the count and the ticket 0; the starting
 //                        error's per-block sums;
 //   per iteration it = 0 .. iters - 1, each a no-op once it >= stop_at:
 //     ba_terms(kTerms)   per tile of kTL listed landmarks: the landmark
 //                        blocks (C, b, B, Cinv, BCinv) and the tile's share of
 //                        A, a, S_off, sb over the optimisable slots and the
-//                        divergence count, as per-block partials;
+//                        divergence count, as per-block partials; Cinv, b and
+//                        B stored by list position for ba_backsub (`blk`);
 //     ba_solve(kSum|kSolve) one block: the partials summed in block order
 //                        into (S, s, n_bad) of the optimisable slots, then
 //                        the Jacobi-equilibrated float32 Cholesky, both
 //                        triangular solves (one warp when n_opt <= 5, else
-//                        the block by 6 x 6 keyframe blocks), the dx guard
-//                        and the candidate poses;
-//     ba_backsub         per tile: dy = Cinv (b - B^T dx) and the tile's
-//                        count of non-finite dy; then every block takes a
-//                        ticket, and the last one runs the apply step: the
-//                        guard's decision (the counts summed), Xr += dy on
-//                        the listed landmarks, T_cr, and stop_at = it + 1
-//                        once done;
-//   ba_terms(kErrFinal)  the final error's per-block sums and _write_back:
-//                        T_cw (re-orthonormalised where optimised), Xw,
-//                        killed.
+//                        the block by 6 x 6 keyframe blocks), the guard's
+//                        dx test and the system's count (step_bad), max
+//                        |dx|, and the step's poses T_new =
+//                        add_front_se3(T_cr, dx);
+//     ba_backsub         unless refused: a thread per (listed landmark,
+//                        row), dy = Cinv (b - B^T dx) from the stored blocks,
+//                        Xr += dy with the previous Xr kept in X's second
+//                        half, the count of non-finite dy (one atomic
+//                        counter); one warp takes T_new, T_cr kept in T's
+//                        second half; then every block takes a ticket, and
+//                        the last one decides: a step that only dy's count
+//                        refuses turns the state to the second half, and
+//                        stop_at = it + 1 once done;
+//   ba_terms(kErrFinal)  from the state's half: the final error's per-block
+//                        sums and _write_back: T_cw (re-orthonormalised
+//                        where optimised), Xw, killed.
 // With a process group, ba_solve runs twice per iteration (kSum, then kSolve)
 // around the all-reduce of (S, s, n_bad).
 
@@ -77,7 +84,6 @@ constexpr int kMaxK = 16;                          // keyframes in a window
 constexpr int kMaxN = 6 * kMaxK;                   // the reduced system's size
 constexpr int kMaxPairs = kMaxK * (kMaxK + 1) / 2;  // its lower block triangle
 constexpr int kTL = 16;                            // landmarks per tile
-constexpr int kMaxBlocks = 132;  // blocks of ba_terms and ba_backsub: one on each of the H100's 132 SMs
 
 // ba_terms modes and ba_solve phases.
 constexpr int kTerms = 0, kErrInit = 1, kErrFinal = 2;
@@ -99,15 +105,19 @@ struct Args {
   float fx, fy, cx, cy, huber_delta, lam, max_trans_update, kill_dist;
   int iters, n_fix, min_obs;
   int group;     // 1: the divergence count comes from the all-reduced system only
-  int n_blocks;  // blocks of ba_terms and ba_backsub (<= kMaxBlocks)
+  int n_blocks;  // blocks of ba_terms and ba_backsub: the card's SM count, at most a block per tile
   // the result
   float* T_out;  // [K, 4, 4] T_cw after the solve
   float* X_out;  // [M, 3] Xw after the solve
   bool* killed;  // [M]
-  // state
-  float* T;      // [K, 4, 4] current T_cr
-  float* X;      // [M, 3] current Xr (read for active landmarks only)
+  // state, in two halves: the current T_cr and Xr in the first; in the
+  // second, as they were before the last step (X for the listed landmarks
+  // only); `half` says which half holds the state
+  float* T;      // [2, K, 4, 4]
+  float* X;      // [2, M, 3] (read for active landmarks only)
+  int* half;     // [1] 0, or 1 once ba_backsub refused a step for a non-finite dy alone
   int* stop_at;  // [1] the iteration count at which the loop stops
+  int* live;     // [1] the live slots as a bit set (bit k: kf_valid[k])
   bool* active;  // [M] lm_active
   int* list;     // [M] the active slots in ascending order, the first *n_act of it
   int* n_act;    // [1]
@@ -116,11 +126,12 @@ struct Args {
   float* err_part;  // [2, n_blocks, 3] error sum, left and right rows: before, after
   float* sys;       // [n_sys(n_opt)] S's lower block triangle, s, n_bad
   float* dx;        // [K, 6]
-  float* T_new;     // [K, 4, 4] candidate poses
-  int* dx_bad;      // [1]
-  float* dy;        // [M, 3] (written for active landmarks only)
-  int* dy_bad;      // [n_blocks] active landmarks with a non-finite dy or block
-  int* ticket;      // [1] ba_backsub's blocks that have finished their tiles
+  float* T_new;     // [K, 4, 4] the step's poses
+  float* blk;       // [blk_rows(n_opt), M] the landmark blocks of ba_terms, by list position
+  int* step_bad;    // [1] the step refused before back-substitution: dx's guard or n_bad
+  float* dx_max;    // [1] max |dx|
+  int* n_dy;        // [1] listed landmarks with a non-finite dy (an integer: the same in any order)
+  int* ticket;      // [1] ba_backsub's blocks that have finished their landmarks
 };
 
 // Sizes over the n optimisable slots. The lower block triangle of S holds
@@ -135,15 +146,20 @@ PG_HD int off_sb(int n) { return 42 * n + 36 * n_pairs(n); }
 PG_HD int off_nb(int n) { return 48 * n + 36 * n_pairs(n); }
 PG_HD int n_part(int n) { return 48 * n + 36 * n_pairs(n) + 1; }
 PG_HD int n_sys(int n) { return 36 * n_pairs(n) + 6 * n + 1; }
+// Rows of `blk`, each M floats over the list positions: Cinv [9] (row-major),
+// b [3], then per optimisable slot B [18] (B[3 r + c], pose row r, point
+// column c; zero where the slot does not observe the landmark).
+PG_HD int blk_rows(int n) { return 12 + 18 * n; }
 
 // What ops/ba.py restates (its `_Args`, the sizes above, the modes and the
 // tile), for the check it makes when it binds a library (`ba_layout` of
-// ba_gn.cu and ba_gn_host.cpp): kMaxK, kTL, kMaxBlocks, the three modes, the
-// two phases, n_part(n), n_sys(n), sizeof(Args), then each field's offset in
-// declaration order. Returns the count of ints; writes them if it is <= cap.
+// ba_gn.cu and ba_gn_host.cpp): kMaxK, kTL, the three modes, the two phases,
+// n_part(n), n_sys(n), blk_rows(n), sizeof(Args), then each field's offset
+// in declaration order. Returns the count of ints; writes them if it is <=
+// cap.
 #define BA_GN_OFFSET(f) (int)offsetof(Args, f),
 inline int layout(int n, int* out, int cap) {
-  const int v[] = {kMaxK, kTL, kMaxBlocks, kTerms, kErrInit, kErrFinal, kSum, kSolve, n_part(n), n_sys(n),
+  const int v[] = {kMaxK, kTL, kTerms, kErrInit, kErrFinal, kSum, kSolve, n_part(n), n_sys(n), blk_rows(n),
                    (int)sizeof(Args),
                    BA_GN_OFFSET(T_cw) BA_GN_OFFSET(Xw) BA_GN_OFFSET(pts) BA_GN_OFFSET(pts_r) BA_GN_OFFSET(mask)
                    BA_GN_OFFSET(mask_r) BA_GN_OFFSET(kf_valid) BA_GN_OFFSET(lm_valid) BA_GN_OFFSET(T_rl)
@@ -151,10 +167,10 @@ inline int layout(int n, int* out, int cap) {
                    BA_GN_OFFSET(cy) BA_GN_OFFSET(huber_delta) BA_GN_OFFSET(lam) BA_GN_OFFSET(max_trans_update)
                    BA_GN_OFFSET(kill_dist) BA_GN_OFFSET(iters) BA_GN_OFFSET(n_fix) BA_GN_OFFSET(min_obs)
                    BA_GN_OFFSET(group) BA_GN_OFFSET(n_blocks) BA_GN_OFFSET(T_out) BA_GN_OFFSET(X_out)
-                   BA_GN_OFFSET(killed) BA_GN_OFFSET(T) BA_GN_OFFSET(X) BA_GN_OFFSET(stop_at)
-                   BA_GN_OFFSET(active) BA_GN_OFFSET(list) BA_GN_OFFSET(n_act) BA_GN_OFFSET(part)
-                   BA_GN_OFFSET(err_part) BA_GN_OFFSET(sys) BA_GN_OFFSET(dx) BA_GN_OFFSET(T_new)
-                   BA_GN_OFFSET(dx_bad) BA_GN_OFFSET(dy) BA_GN_OFFSET(dy_bad) BA_GN_OFFSET(ticket)};
+                   BA_GN_OFFSET(killed) BA_GN_OFFSET(T) BA_GN_OFFSET(X) BA_GN_OFFSET(half) BA_GN_OFFSET(stop_at)
+                   BA_GN_OFFSET(live) BA_GN_OFFSET(active) BA_GN_OFFSET(list) BA_GN_OFFSET(n_act) BA_GN_OFFSET(part)
+                   BA_GN_OFFSET(err_part) BA_GN_OFFSET(sys) BA_GN_OFFSET(dx) BA_GN_OFFSET(T_new) BA_GN_OFFSET(blk)
+                   BA_GN_OFFSET(step_bad) BA_GN_OFFSET(dx_max) BA_GN_OFFSET(n_dy) BA_GN_OFFSET(ticket)};
   const int n_v = (int)(sizeof(v) / sizeof(v[0]));
   if (n_v <= cap)
     for (int i = 0; i < n_v; ++i) out[i] = v[i];
@@ -168,6 +184,33 @@ PG_HD int max_opt(int K, int n_fix) { return K - n_fix > 0 ? K - n_fix : 0; }
 
 PG_HD bool opt_slot(const Args& a, int k) { return a.kf_valid[k] && k >= a.n_fix; }
 
+// The live slots as a bit set over k (the first launch stores it as `live`
+// for the others); the optimisable ones are those from n_fix on.
+PG_HD unsigned live_bits(const Args& a) {
+  unsigned v = 0;
+  for (int k = 0; k < a.K; ++k)
+    if (a.kf_valid[k]) v |= 1u << k;
+  return v;
+}
+PG_HD unsigned opt_bits(const Args& a, unsigned kf) { return kf & ~((1u << a.n_fix) - 1u); }
+
+PG_HD int popc(unsigned v) {
+#ifdef __CUDA_ARCH__
+  return __popc(v);
+#else
+  return __builtin_popcount(v);
+#endif
+}
+
+// The lowest set bit's index (v != 0).
+PG_HD int lowest(unsigned v) {
+#ifdef __CUDA_ARCH__
+  return __ffs(v) - 1;
+#else
+  return __builtin_ctz(v);
+#endif
+}
+
 // The window's slots as the tile and solve launches read them, and the
 // landmark list's size (from the state the first launch wrote).
 struct Slots {
@@ -178,41 +221,40 @@ struct Slots {
   int pj[kMaxPairs], pk[kMaxPairs];  // the lower block triangle's pairs (j, k)
 };
 
+// The slot tables, each entry by its own thread from the bit set of live
+// slots, which every thread reads with the list's size: slot k's index
+// among the optimisable slots counts those before it, and a pair p of the
+// lower block triangle finds its row j by a walk over at most kMaxK rows.
 template <class Blk>
 PG_HD void load_slots(const Args& a, Blk& b, Slots& s) {
+  const int n_act = *a.n_act;
+  const unsigned kf = (unsigned)*a.live, opt = opt_bits(a, kf);
+  for (int k = b.tid; k < a.K; k += b.nthr) {
+    const bool o = (opt >> k) & 1u;
+    s.kf[k] = (kf >> k) & 1u;
+    s.cidx[k] = o ? popc(opt & ((1u << k) - 1u)) : -1;
+    if (o) s.slot[s.cidx[k]] = k;
+  }
+  const int n = popc(opt);
+  for (int p = b.tid; p < n_pairs(n); p += b.nthr) {
+    int j = 0;
+    while ((j + 1) * (j + 2) / 2 <= p) ++j;
+    s.pj[p] = j;
+    s.pk[p] = p - j * (j + 1) / 2;
+  }
   if (b.tid == 0) {
-    int n = 0;
-    for (int k = 0; k < a.K; ++k) {
-      s.kf[k] = a.kf_valid[k];
-      s.cidx[k] = -1;
-      if (opt_slot(a, k)) {
-        s.cidx[k] = n;
-        s.slot[n++] = k;
-      }
-    }
     s.n_opt = n;
-    for (int j = 0, p = 0; j < n; ++j)
-      for (int k = 0; k <= j; ++k, ++p) {
-        s.pj[p] = j;
-        s.pk[p] = k;
-      }
-    s.n_act = *a.n_act;
-    s.n_tiles = (s.n_act + kTL - 1) / kTL;
+    s.n_act = n_act;
+    s.n_tiles = (n_act + kTL - 1) / kTL;
   }
   b.sync();
 }
 
 // Blocks of a tile launch that received a tile (the others return at once),
-// and so the partial sums and counts that the next launches add up.
+// and so the partial sums that ba_solve adds up.
 PG_HD int used_blocks(const Args& a, int n_act) {
   const int n_tiles = (n_act + kTL - 1) / kTL;
   return n_tiles < a.n_blocks ? n_tiles : a.n_blocks;
-}
-
-PG_HD int count_opt(const Args& a) {
-  int n = 0;
-  for (int k = 0; k < a.K; ++k) n += opt_slot(a, k);
-  return n;
 }
 
 // Per-pair slots of a tile, for every window slot: C's share [3][3], b's
@@ -221,8 +263,8 @@ PG_HD int count_opt(const Args& a) {
 // Cinv, b, the divergence flag.
 constexpr int kPairFloats = 9 + 3 + 1 + 1;
 constexpr int kOptPairFloats = 18 + 18 + 36 + 6;
-// Shared memory of a ba_terms / ba_backsub tile block, in floats, for K
-// slots of which at most n_opt are optimisable.
+// Shared memory of a ba_terms tile block, in floats, for K slots of which
+// at most n_opt are optimisable.
 PG_HD int tile_floats(int K, int n_opt) {
   return n_part(n_opt) + kTL * K * kPairFloats + kTL * n_opt * kOptPairFloats + kTL * (9 + 3 + 1);
 }
@@ -355,14 +397,14 @@ PG_HD void pair_rows(const Args& a, const float* T, const float* X, int m, int k
 
 // assemble_normal_blocks for one pair: its shares of C and b (without the
 // minus) into pair slot q and whether its B is finite; for an optimisable
-// slot (o >= 0) also its B and, with_A, its shares of A and a (without the
-// minus) into slot o.
-PG_HD void pair_blocks(const Rows& o, Tile& t, int q, int opt, bool with_A) {
+// slot (o >= 0) also its B and its shares of A and a (without the minus)
+// into slot o.
+PG_HD void pair_blocks(const Rows& o, Tile& t, int q, int opt) {
   float B[18];
   float* Cc = t.Cc + 9 * q;
   float* bc = t.bc + 3 * q;
-  float* Ac = with_A && opt >= 0 ? t.Ac + 36 * opt : nullptr;
-  float* ac = with_A && opt >= 0 ? t.ac + 6 * opt : nullptr;
+  float* Ac = opt >= 0 ? t.Ac + 36 * opt : nullptr;
+  float* ac = opt >= 0 ? t.ac + 6 * opt : nullptr;
   for (int i = 0; i < 18; ++i) B[i] = 0.0f;
   for (int i = 0; i < 9; ++i) Cc[i] = 0.0f;
   for (int i = 0; i < 3; ++i) bc[i] = 0.0f;
@@ -412,23 +454,33 @@ PG_HD bool finite_n(const float* v, int n) {
   return f;
 }
 
+// Entry (row, list position p) of `blk`.
+PG_HD float& blk_at(const Args& a, int row, int p) { return a.blk[(size_t)row * a.M + p]; }
+
 // The landmark blocks of the tile of list positions p0 .. p0 + kTL - 1 at
-// the current state: every pair's rows and blocks, then per landmark C, b
-// (damped, summed over its keyframes in order), Cinv and the divergence
-// flag; with_A also A's and a's shares and BCinv. Ends on a barrier.
+// the current state: every pair's rows, blocks and A's and a's shares, then
+// per landmark C, b (damped, summed over its keyframes in order), Cinv and
+// the divergence flag, then BCinv; Cinv, b and B over the optimisable slots
+// also into `blk` for ba_backsub, where they are made (a pair that is not
+// observed stores B = 0: its B^T dx terms then add an exact zero to a sum
+// that starts at +0, which leaves the sum as it was, as the plain version's
+// masked pair adds exact zeros too). Ends on a barrier.
 template <class Blk>
-PG_HD void tile_blocks(const Args& a, Blk& b, const Slots& s, Tile& t, int p0, bool with_A) {
+PG_HD void tile_blocks(const Args& a, Blk& b, const Slots& s, Tile& t, int p0) {
   const int K = a.K, no = s.n_opt;
   for (int q = b.tid; q < kTL * K; q += b.nthr) {
     const int l = q / K, k = q % K;
     const int m = p0 + l < s.n_act ? a.list[p0 + l] : -1;
     const bool ml = m >= 0 && s.kf[k] && a.mask[m * K + k], mr = m >= 0 && s.kf[k] && a.mask_r[m * K + k];
     t.obs[q] = ml || mr;
+    const int opt = s.cidx[k] < 0 ? -1 : l * no + s.cidx[k];
     if (ml || mr) {
       Rows o;
-      pair_rows(a, a.T, a.X, m, k, ml, mr, o, nullptr);
-      pair_blocks(o, t, q, s.cidx[k] < 0 ? -1 : l * no + s.cidx[k], with_A);
+      pair_rows(a, a.T, a.X, m, k, ml, mr, o, nullptr);  // a working iteration's state is the first half
+      pair_blocks(o, t, q, opt);
     }
+    if (opt >= 0 && m >= 0)  // B for ba_backsub, 0 where the slot does not observe the landmark
+      for (int i = 0; i < 18; ++i) blk_at(a, 12 + 18 * s.cidx[k] + i, p0 + l) = ml || mr ? t.B[18 * opt + i] : 0.0f;
   }
   b.sync();
   for (int l = b.tid; l < kTL; l += b.nthr) {
@@ -450,21 +502,21 @@ PG_HD void tile_blocks(const Args& a, Blk& b, const Slots& s, Tile& t, int p0, b
       t.b[3 * l + i] = -bs[i];
     }
     inv3x3(C, t.Cinv + 9 * l);
+    if (p0 + l < s.n_act)  // Cinv and b for ba_backsub
+      for (int i = 0; i < 12; ++i) blk_at(a, i, p0 + l) = i < 9 ? t.Cinv[9 * l + i] : t.b[3 * l + i - 9];
     t.bad[l] = p0 + l < s.n_act && !(finite_n(t.Cinv + 9 * l, 9) && finite_n(t.b + 3 * l, 3) && finite_B);
   }
   b.sync();
-  if (with_A) {
-    for (int o = b.tid; o < kTL * no; o += b.nthr) {
-      const int l = o / no;
-      if (!t.obs[l * K + s.slot[o % no]]) continue;
-      const float* B = t.B + 18 * o;
-      const float* Ci = t.Cinv + 9 * l;
-      for (int c = 0; c < 6; ++c)
-        for (int d = 0; d < 3; ++d)
-          t.BC[18 * o + 3 * c + d] = (B[3 * c] * Ci[d] + B[3 * c + 1] * Ci[3 + d]) + B[3 * c + 2] * Ci[6 + d];
-    }
-    b.sync();
+  for (int o = b.tid; o < kTL * no; o += b.nthr) {
+    const int l = o / no;
+    if (!t.obs[l * K + s.slot[o % no]]) continue;
+    const float* B = t.B + 18 * o;
+    const float* Ci = t.Cinv + 9 * l;
+    for (int c = 0; c < 6; ++c)
+      for (int d = 0; d < 3; ++d)
+        t.BC[18 * o + 3 * c + d] = (B[3 * c] * Ci[d] + B[3 * c + 1] * Ci[3 + d]) + B[3 * c + 2] * Ci[6 + d];
   }
+  b.sync();
 }
 
 // Adds one tile's share to the block's partial sums over the optimisable
@@ -519,7 +571,7 @@ PG_HD void terms_block(const Args& a, Blk& b, Slots& s, float* smem, int it) {
   for (int e = b.tid; e < P; e += b.nthr) t.acc[e] = 0.0f;
   for (int tile = b.bid; tile < s.n_tiles; tile += b.nblk) {
     b.sync();  // the previous tile's sums are taken
-    tile_blocks(a, b, s, t, kTL * tile, true);
+    tile_blocks(a, b, s, t, kTL * tile);
     tile_accumulate(a, b, s, t);
   }
   b.sync();
@@ -604,10 +656,12 @@ PG_HD void build_list(const Args& a, Blk& b) {
 
 // ba_terms(kErrInit / kErrFinal), a thread per landmark slot m = bid nthr +
 // tid, ...: the masked left-row error sum and the left and right row counts
-// (ops/ba.py's err_sums) at the anchored start or the current state.
+// (ops/ba.py's err_sums) at the anchored start or the current state (the
+// half that `half` names).
 // kErrInit also anchors (ops/ba._anchor: lm_active, T_cr = T_cw T_wr with
 // T_wr = se3_inverse(T_cw[0]), Xr = T_rw Xw), stores the start as the state
-// and, in block 0, lists the active landmarks and sets stop_at = iters.
+// in the first half and, in block 0, lists the active landmarks and sets
+// stop_at = iters (half, the count and the ticket 0).
 // kErrFinal also writes back (ops/ba._write_back): T_cw = se3_project(T_cr
 // T_rw) on the optimisable slots, Xw = T_wr Xr and the kill rule on the
 // active landmarks, everything else copied from the input.
@@ -615,6 +669,9 @@ template <class Blk>
 PG_HD void err_block(const Args& a, Blk& b, float* smem, int mode) {
   const bool init = mode == kErrInit;
   const int K = a.K;
+  const int h = init ? 0 : *a.half;
+  const float* Ts = a.T + 16 * K * h;  // the state
+  float* Xs = a.X + (size_t)3 * a.M * h;
   float* Tcr = smem;  // [K][16]
   float* Trw = smem + 16 * K;
   float* Twr = Trw + 16;
@@ -630,6 +687,9 @@ PG_HD void err_block(const Args& a, Blk& b, float* smem, int mode) {
       for (int i = b.tid; i < 16 * K; i += b.nthr) a.T[i] = Tcr[i];
       if (b.tid == 0) {
         *a.stop_at = a.iters;
+        *a.live = (int)live_bits(a);
+        *a.half = 0;
+        *a.n_dy = 0;
         *a.ticket = 0;
       }
       build_list(a, b);
@@ -638,7 +698,7 @@ PG_HD void err_block(const Args& a, Blk& b, float* smem, int mode) {
     for (int k = b.tid; k < K; k += b.nthr) {
       float Tk[16];
       if (opt_slot(a, k)) {
-        mat44(a.T + 16 * k, Trw, Tk);
+        mat44(Ts + 16 * k, Trw, Tk);
         se3_project(Tk);
       } else {
         pose_gn::copy16(a.T_cw + 16 * k, Tk);
@@ -646,10 +706,10 @@ PG_HD void err_block(const Args& a, Blk& b, float* smem, int mode) {
       pose_gn::copy16(Tk, a.T_out + 16 * k);
     }
   }
-  const float* T = init ? Tcr : a.T;
+  const float* T = init ? Tcr : Ts;
   float err = 0.0f, n_l = 0.0f, n_r = 0.0f;
   for (int m = b.bid * b.nthr + b.tid; m < a.M; m += b.nthr * b.nblk) {
-    const float* Xm = a.X + 3 * m;
+    const float* Xm = Xs + 3 * m;
     bool act;
     if (init) {
       act = lm_active(a, m);
@@ -664,7 +724,7 @@ PG_HD void err_block(const Args& a, Blk& b, float* smem, int mode) {
         if (a.mask[m * K + k]) {
           Rows o;
           float e;
-          pair_rows(a, T, a.X, m, k, true, false, o, &e);
+          pair_rows(a, T, Xs, m, k, true, false, o, &e);
           err += e;
           n_l += 1.0f;
         }
@@ -702,94 +762,106 @@ PG_HD T ld_cg(const T* p) {
 #endif
 }
 
-// The apply step, run by ba_backsub's last block once every block has
-// written its dy and its count: the guard (the dx test, then the divergence
-// counts: the all-reduced n_bad, and on one device also every tile's
-// non-finite dy, whose sum is an integer and so the same in any order),
-// Xr += dy on the listed landmarks and T_cr = T_new unless bad, the block
-// striding both, and the early stop: done = bad or max |dx| < 1e-5 sets
-// stop_at = it + 1, which the launches of later iterations read. The
-// ticket goes back to 0 for the next iteration's launch.
+// The apply step's decision, by ba_backsub's last block once every block
+// has added its landmarks' Xr += dy and its count (thread 0 alone: four
+// scalars). The guard: the step was refused before back-substitution
+// (`refused`: dx's test or the system's n_bad, and then nothing moved), or
+// on one device a listed landmark's dy is not finite (n_dy > 0, an integer
+// and so the same in any order); such a step turns the state to the second
+// half, T_cr and Xr as they were before it. The early stop: done = bad or
+// max |dx| < 1e-5 sets stop_at = it + 1, which the launches of later
+// iterations read. The count and the ticket go back to 0 for the next
+// iteration's launch.
 template <class Blk>
-PG_HD void apply_tail(const Args& a, Blk& b, int it) {
-  const int n_act = *a.n_act, G = used_blocks(a, n_act);
-  float n_dy = 0.0f;
-  for (int g = b.tid; g < G; g += b.nthr) n_dy += (float)ld_cg(a.dy_bad + g);
-  n_dy = b.sum(n_dy);
-  const bool bad = *a.dx_bad || a.sys[n_sys(count_opt(a)) - 1] > 0.0f || (!a.group && n_dy > 0.0f);
-  float mx = 0.0f;
-  if (!bad) {
-    // Xr += dy, kInFlight list positions a thread at a time: their loads
-    // are all issued before the first store (one block walks every listed
-    // landmark, so the loop is bound by memory latency, not work).
-    constexpr int kInFlight = 8;
-    for (int p0 = b.tid; p0 < n_act; p0 += kInFlight * b.nthr) {
-      int m[kInFlight];
-      float x[kInFlight][3], d[kInFlight][3];
-      for (int u = 0; u < kInFlight; ++u) {
-        const int p = p0 + u * b.nthr;
-        m[u] = p < n_act ? a.list[p] : -1;
-      }
-      for (int u = 0; u < kInFlight; ++u)
-        for (int c = 0; c < 3 && m[u] >= 0; ++c) {
-          x[u][c] = a.X[3 * m[u] + c];
-          d[u][c] = ld_cg(a.dy + 3 * m[u] + c);
-        }
-      for (int u = 0; u < kInFlight; ++u)
-        for (int c = 0; c < 3 && m[u] >= 0; ++c) a.X[3 * m[u] + c] = x[u][c] + d[u][c];
-    }
-    for (int i = b.tid; i < 16 * a.K; i += b.nthr) a.T[i] = a.T_new[i];
-    for (int i = b.tid; i < 6 * a.K; i += b.nthr) mx = fmaxf(mx, fabsf(a.dx[i]));
-  }
-  mx = b.max(mx);
-  if (b.tid == 0) {
-    if (bad || mx < 1e-5f) *a.stop_at = it + 1;
-    *a.ticket = 0;
-  }
+PG_HD void apply_tail(const Args& a, Blk& b, int it, bool refused) {
+  if (b.tid != 0) return;
+  const int n_dy = ld_cg(a.n_dy);
+  const bool bad = refused || (!a.group && n_dy > 0);
+  if (bad && !refused) *a.half = 1;
+  const float mx = *a.dx_max;
+  if (bad || mx < 1e-5f) *a.stop_at = it + 1;
+  *a.n_dy = 0;
+  *a.ticket = 0;
 }
 
 // ba_backsub: dy = Cinv (b - sum_k B_k^T dx_k) over the optimisable slots
-// (dx is an exact 0 on the others) for the block's tiles of listed
-// landmarks, and the count of those whose blocks or dy are not finite; then
-// every block, with a tile or without, takes a ticket, and the last runs
-// the apply step (`apply_tail`).
+// (dx is an exact 0 on the others) for every listed landmark, from the
+// blocks that ba_terms stored (`blk`), and Xr += dy, the previous Xr kept in
+// X's second half; the count of listed landmarks with a non-finite dy into
+// n_dy; and the step's poses. Nothing moves where the step was refused
+// before back-substitution.
+// A thread per (list position, row): each warp of the grid takes
+// Blk::kLmPerWarp consecutive positions (the first warp of every block
+// first, so that a short list spreads over the SMs), each thread the sum
+// B^T dx of its row, each row's dy from the three rows' b - B^T dx; every
+// entry in the plain version's order of operations (the sum over the
+// optimisable slots in order, r = 0..5, then (c0 r0 + c1 r1) + c2 r2). Then
+// every block, with landmarks or without, takes a ticket, and the last
+// decides (`apply_tail`).
 template <class Blk>
-PG_HD void backsub_block(const Args& a, Blk& b, Slots& s, float* smem, int it) {
-  if (it >= *a.stop_at) return;
-  load_slots(a, b, s);
-  if (b.bid < s.n_tiles) {
-    const int K = a.K, no = s.n_opt;
-    Tile t(smem, K, no);
-    int count = 0;
-    for (int tile = b.bid; tile < s.n_tiles; tile += b.nblk) {
-      const int p0 = kTL * tile;
-      b.sync();
-      tile_blocks(a, b, s, t, p0, false);
-      for (int l = b.tid; l < kTL; l += b.nthr) {
-        if (p0 + l >= s.n_act) continue;
-        const int m = a.list[p0 + l];
-        float rhs[3], dy[3];
-        for (int c = 0; c < 3; ++c) {
-          float acc = 0.0f;
-          for (int o = 0; o < no; ++o) {
-            const int k = s.slot[o];
-            if (!t.obs[l * K + k]) continue;
-            for (int r = 0; r < 6; ++r) acc += t.B[18 * (l * no + o) + 3 * r + c] * a.dx[6 * k + r];
+PG_HD void backsub_block(const Args& a, Blk& b, int it) {
+  const int stop_at = *a.stop_at, n_act = *a.n_act;
+  const bool refused = *a.step_bad;
+  const unsigned opt = opt_bits(a, (unsigned)*a.live);
+  if (it >= stop_at) return;
+  const int L = Blk::kLmPerWarp, W = b.nwarps() * b.nblk;
+  int j, c0;
+  b.lm_lane(j, c0);
+  const int n = refused ? 0 : n_act;
+  for (int q = (b.warp() * b.nblk + b.bid) * L; q < n; q += W * L) {
+    const bool on = j < L && q + j < n;
+    const int p = on ? q + j : q;  // a lane without a position computes position q's rows, unwritten
+    const int m = a.list[p];
+    float x[Blk::kRows];
+    for (int u = 0; u < Blk::kRows; ++u) x[u] = a.X[3 * m + c0 + u];
+    float rhs[3];
+    for (int c = c0; c < c0 + Blk::kRows; ++c) {
+      // B^T dx's row c over the optimisable slots in order, kChunk slots'
+      // B and dx loaded before their products are summed.
+      constexpr int kChunk = 4;
+      float acc = 0.0f;
+      unsigned left = opt;
+      for (int o0 = 0; left; o0 += kChunk) {
+        float Bv[kChunk][6], dv[kChunk][6];
+        int nu = 0;
+        for (int u = 0; u < kChunk; ++u) {
+          if (!left) continue;
+          const int k = lowest(left);
+          left &= left - 1u;
+          for (int r = 0; r < 6; ++r) {
+            Bv[u][r] = blk_at(a, 12 + 18 * (o0 + u) + 3 * r + c, p);
+            dv[u][r] = a.dx[6 * k + r];
           }
-          rhs[c] = t.b[3 * l + c] - acc;
+          nu = u + 1;
         }
-        const float* Ci = t.Cinv + 9 * l;
-        for (int i = 0; i < 3; ++i) dy[i] = (Ci[3 * i] * rhs[0] + Ci[3 * i + 1] * rhs[1]) + Ci[3 * i + 2] * rhs[2];
-        t.bad[l] = t.bad[l] || !finite_n(dy, 3);
-        for (int i = 0; i < 3; ++i) a.dy[3 * m + i] = dy[i];
+        for (int u = 0; u < kChunk; ++u)
+          if (u < nu)
+            for (int r = 0; r < 6; ++r) acc += Bv[u][r] * dv[u][r];
       }
-      b.sync();
-      if (b.tid == 0)
-        for (int l = 0; l < kTL; ++l) count += t.bad[l] ? 1 : 0;
+      b.put_row(rhs, c, blk_at(a, 9 + c, p) - acc);
     }
-    if (b.tid == 0) a.dy_bad[b.bid] = count;
+    bool bad = false;
+    for (int u = 0; u < Blk::kRows; ++u) {
+      const int i = c0 + u;
+      const float ci0 = blk_at(a, 3 * i, p), ci1 = blk_at(a, 3 * i + 1, p), ci2 = blk_at(a, 3 * i + 2, p);
+      const float dy = (ci0 * rhs[0] + ci1 * rhs[1]) + ci2 * rhs[2];
+      bad = bad || !isfinite(dy);
+      if (on) {
+        a.X[(size_t)3 * (a.M + m) + i] = x[u];
+        a.X[3 * m + i] = x[u] + dy;
+      }
+    }
+    const int n_bad = b.landmarks_with(on && bad);
+    if (n_bad > 0 && b.lane() == 0) b.atomic_add(a.n_dy, n_bad);
   }
-  if (b.last(a.ticket)) apply_tail(a, b, it);
+  // The step's poses, by the grid's last warp (past the landmarks' first
+  // pass): T_cr into T's second half, T_new in its place.
+  if (!refused && b.bid == b.nblk - 1 && b.warp() == b.nwarps() - 1)
+    for (int e = b.lane(); e < 16 * a.K; e += Blk::kWarp) {
+      a.T[16 * a.K + e] = a.T[e];
+      a.T[e] = a.T_new[e];
+    }
+  if (b.last(a.ticket)) apply_tail(a, b, it, refused);
 }
 
 // What ba_solve keeps in shared memory.
@@ -799,6 +871,7 @@ struct SolveShared {
   float z[kMaxN], y[kMaxN], dinv[kMaxN], ld[kMaxN];
   int fail;
   int bad[kMaxK];
+  float mx[kMaxK];
 };
 
 // The threads that factor and solve the system: the first warp when the
@@ -895,9 +968,10 @@ PG_HD float sum_blocks(const float* p, int stride, int G) {
 
 // ba_solve: kSum sums the used blocks' partials in block order into sys =
 // (S, s, n_bad) over the optimisable slots (schur_reduce's damping and
-// assembly); kSolve solves sys (solve_reduced) and takes the candidate step:
-// dx, the dx guard (non-finite, or a translation above max_trans_update) and
-// T_new = add_front_se3(T, dx) on the optimisable poses.
+// assembly); kSolve solves sys (solve_reduced) and takes the step's part of
+// the guard: dx, step_bad (dx not finite or a translation above
+// max_trans_update, or n_bad > 0), max |dx|, and the step's poses T_new =
+// add_front_se3(T_cr, dx) on the optimisable slots (ba_backsub takes them).
 template <class Blk>
 PG_HD void solve_block(const Args& a, Blk& b, SolveShared& sh, int it, int phase) {
   if (it >= *a.stop_at) return;
@@ -951,22 +1025,31 @@ PG_HD void solve_block(const Args& a, Blk& b, SolveShared& sh, int it, int phase
     chol_solve(t, sh, n);
   }
   b.sync();
+  const float n_bad = a.sys[n_sys(no) - 1];
   for (int k = b.tid; k < K; k += b.nthr) {
     const int c = s.cidx[k];
     float d[6];
     for (int r = 0; r < 6; ++r) d[r] = c < 0 ? 0.0f : (sh.fail ? NAN : sh.z[6 * c + r]) * sh.dinv[6 * c + r];
     for (int r = 0; r < 6; ++r) a.dx[6 * k + r] = d[r];
     sh.bad[k] = !finite_n(d, 6) || sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) > a.max_trans_update;
+    float mx = 0.0f;
+    for (int r = 0; r < 6; ++r) mx = fmaxf(mx, fabsf(d[r]));
+    sh.mx[k] = mx;
     float Tk[16];
     pose_gn::copy16(a.T + 16 * k, Tk);
     if (c >= 0) pose_gn::add_front_se3(d, Tk);
     pose_gn::copy16(Tk, a.T_new + 16 * k);
   }
   b.sync();
+  bool bad = n_bad > 0.0f;
+  float mx = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    bad = bad || sh.bad[k];
+    mx = fmaxf(mx, sh.mx[k]);
+  }
   if (b.tid == 0) {
-    bool bad = false;
-    for (int k = 0; k < K; ++k) bad = bad || sh.bad[k];
-    *a.dx_bad = bad;
+    *a.step_bad = bad;
+    *a.dx_max = mx;
   }
 }
 

@@ -3,8 +3,9 @@
 // arguments as ba_gn.cu's (the stream is ignored), each launcher running the
 // launch's blocks one after the other with one thread. A block's sum, max
 // and prefix over its one thread are the thread's own value, it and 0; the
-// warp that factors the reduced system is that thread too; the blocks take
-// their tickets in block order, so ba_backsub's last block runs its tail.
+// warp that factors the reduced system is that thread too; in ba_backsub
+// the thread is a warp of one landmark and takes all three rows; the blocks
+// take their tickets in block order, so ba_backsub's last block decides.
 // tests/test_torch_ba_gn.py builds it with g++ into build/kernels/ and runs
 // ops/ba.py's launch sequence on it.
 //
@@ -22,6 +23,14 @@ struct HostBlock {
   int tid = 0, nthr = 1, bid = 0, nblk = 1;
   void sync() {}
   void warp_sync() {}
+  int lane() const { return 0; }
+  int warp() const { return 0; }
+  int nwarps() const { return 1; }
+  static constexpr int kWarp = 1, kLmPerWarp = 1, kRows = 3;
+  void lm_lane(int& j, int& c) const { j = c = 0; }
+  void put_row(float* rows, int c, float v) const { rows[c] = v; }
+  int landmarks_with(bool f) const { return f ? 1 : 0; }
+  void atomic_add(int* p, int v) const { *p += v; }
   float sum(float v) { return v; }
   float max(float v) { return v; }
   bool last(int* ticket) { return (*ticket)++ == nblk - 1; }
@@ -64,9 +73,7 @@ int ba_solve_launch(const ba_gn::Args* a, int it, int phase, void*) {
 }
 
 int ba_backsub_launch(const ba_gn::Args* a, int it, void*) {
-  std::vector<float> smem(ba_gn::tile_floats(a->K, ba_gn::max_opt(a->K, a->n_fix)));
-  ba_gn::Slots s;
-  blocks(a->n_blocks, [&](HostBlock& b) { ba_gn::backsub_block(*a, b, s, smem.data(), it); });
+  blocks(a->n_blocks, [&](HostBlock& b) { ba_gn::backsub_block(*a, b, it); });
   return 0;
 }
 

@@ -1,6 +1,6 @@
-"""Where a pose solve's iteration and BA's apply step spend their time on the
-card: clock stamps from one thread, in an instrumented copy of the tree's
-kernels.
+"""Where a pose solve's iteration and a working `ba_backsub` launch spend
+their time on the card: clock stamps from one thread, in an instrumented
+copy of the tree's kernels.
 
 The leg copies the tree's `csrc/` under `build/kernel_split/`, puts stamps
 (`clock64()` and `%globaltimer`, stored by one thread into a device buffer)
@@ -12,16 +12,26 @@ library. No timing code lives in `csrc/`. Stamps:
     step (`step(a, acc, ...);`) and, where the design has one, the barrier
     after it; per launch, the whole `run(...)` and what lies outside the
     iterations (the robust wrapper's walks and sums, the outputs);
-  - window BA, per iteration, where `ba_backsub`'s last block runs the
-    apply step (`apply_tail`): the divergence counts' sum, X += dy, T and
-    max |dx|, the stop test.
-The marks match the pose loop of both the one-thread step (a barrier after
-it) and the step taken by every warp, so a copy of this file, with
-`pose_ab.py` and `ba_ab.py`, in another tree's package splits that tree's
-pose kernel; a tree without `apply_tail` gives pose rows only. A stamp
-costs a clock read and two stores; cycles become ns by the launch's own
-clock64 / globaltimer ratio. `--threads` sets `kThreads` of pose_gn.cu in
-the copy (one copy per size, built in parallel), to re-time the team size.
+  - window BA, per working iteration's `ba_backsub` launch: in block 0
+    (thread 0, its first tile or warp of landmarks) the prologue, the
+    landmark blocks (rebuilt from the observations where a tree's
+    ba_backsub rebuilds them; read, with B^T dx, where it reads what
+    ba_terms stored), dy and its write; in the block that takes the last
+    ticket, the ticket itself (from its own work's end) and the apply
+    step's tail (`apply_tail`) in four parts: the count, then X += dy and
+    T and max |dx| where a tree's tail walks them (where it only decides,
+    the guard and the stop test), the stores.
+A mark is a list of alternatives, of which one must match once: the marks
+match the pose loop of both the one-thread step (a barrier after it) and
+the step taken by every warp, and `backsub_block` / `apply_tail` of both
+the tail that applies the step over the landmark list and the one that
+only decides, so a copy of this file, with `pose_ab.py` and `ba_ab.py`, in
+another tree's package splits that tree's kernels; a tree without
+`apply_tail` gives pose rows only. A stamp costs a clock read and two
+stores (a load's wait shows where its value is first used); cycles become
+ns by the pose launches' clock64 / globaltimer ratio. `--threads` sets
+`kThreads` of pose_gn.cu in the copy (one copy per size, built in
+parallel), to re-time the team size.
 One JSON line per case and size goes to `--out`, medians over `--reps`
 launches. Run from the tree's root after chip_smoke.py has saved the cases:
 
@@ -60,10 +70,22 @@ static __device__ __forceinline__ void ks_put(int slot) {
   ks_buf[2 * slot + 1] = gt;
 }
 #endif
+#ifdef __CUDACC__
+static __device__ __forceinline__ void ks_put_at(int slot, unsigned long long clk) {
+  unsigned long long gt;
+  asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(gt));
+  ks_buf[2 * slot] = clk;
+  ks_buf[2 * slot + 1] = gt;
+}
+#endif
 #ifdef __CUDA_ARCH__
 #define KS(slot, who) do { if (who) ::pose_gn::ks_put(slot); } while (0)
+#define KS_CLOCK(v) const unsigned long long v = clock64()
+#define KS_AT(slot, who, clk) do { if (who) ::pose_gn::ks_put_at(slot, clk); } while (0)
 #else
 #define KS(slot, who) do { } while (0)
+#define KS_CLOCK(v) const unsigned long long v = 0; (void)v
+#define KS_AT(slot, who, clk) do { } while (0)
 #endif
 """ % {"slots": SLOTS}
 
@@ -80,17 +102,21 @@ extern "C" int ks_read_%(tu)s(unsigned long long* out) {
 
 # Pose slots: (pass * 128 + iteration) * 8 + tag, tags 1 top, 2 walk done,
 # 3 sum done, 4 step done, 5 barrier after the step done; 2048 / 2049 the
-# launch's start and end. BA slots: 4096 + iteration * 64 + tag.
+# launch's start and end. BA slots: 4096 + iteration * 64 + tag: in block
+# 0, 50 entry, 51 prologue done, 52 blocks ready, 53 dy done; in the last
+# block, 54 its own work done (before the ticket), 40 the tail's start, 41
+# count, 42 before the X / T part, 43 after it, 44 the tail's end.
 P = "threadIdx.x == 0 && blockIdx.x == 0"
 T0 = "b.tid == 0"
+B0 = "b.tid == 0 && b.bid == 0"
 
 
 def _pose(tag: int) -> str:
     return f"KS(((second ? 1 : 0) * 128 + ks_i) * 8 + {tag}, {P});"
 
 
-def _ba(tag: int) -> str:
-    return f"KS(4096 + it * 64 + {tag}, {T0});"
+def _ba(tag: int, who: str = T0) -> str:
+    return f"KS(4096 + it * 64 + {tag}, {who});"
 
 
 def _step(m) -> str:
@@ -99,30 +125,62 @@ def _step(m) -> str:
     return out + (f"{ind}b.sync();\n{ind}{_pose(5)}\n" if m["sync"] else "")
 
 
-# (file, statement pattern, what it becomes); each pattern must match once.
+def _after(tag: int, who: str = T0):
+    return lambda m: f"{m[0]}{m['ind']}{_ba(tag, who)}\n"
+
+
+def _before(tag: int, who: str = T0):
+    return lambda m: f"\n{m['ind']}{_ba(tag, who)}{m[0]}"
+
+
+def _ticket(m) -> str:
+    ind = m["ind"]
+    return (f"\n{ind}KS_CLOCK(ks_t);\n{ind}if (b.last(a.ticket)) {{\n{ind}  KS_AT(4096 + it * 64 + 54, {T0}, ks_t);\n"
+            f"{ind}  apply_tail({m['args']});\n{ind}  {_ba(44)}\n{ind}}}\n")
+
+
+FIRST_TILE = f"{B0} && tile == b.bid"  # block 0's first tile of landmarks (a tree that rebuilds them)
+FIRST_WARP = f"{B0} && q == 0"  # block 0's first warp of landmarks (a tree that reads them)
+
+# {file: [mark, ...]}, a mark a list of (statement pattern, what it becomes)
+# alternatives, exactly one of which matches, once.
 MARKS = {
     "pose_gn.cuh": [
-        (r"\n(?P<ind>[ \t]*)while \((?P<st>\w+)\.it < a\.max_iters && !(?P=st)\.done\) \{\n",
-         lambda m: f"{m[0]}{m['ind']}  const int ks_i = {m['st']}.it;\n{m['ind']}  {_pose(1)}\n"),
-        (r"\n(?P<ind>[ \t]*)b\.sum\(acc\);\n(?P=ind)(?P<step>(?:if \(b\.tid == 0\) )?step\(a, acc, [^;\n]*\);)\n"
-         r"(?:(?P=ind)(?P<sync>b\.sync\(\);)\n)?", _step),
+        [(r"\n(?P<ind>[ \t]*)while \((?P<st>\w+)\.it < a\.max_iters && !(?P=st)\.done\) \{\n",
+          lambda m: f"{m[0]}{m['ind']}  const int ks_i = {m['st']}.it;\n{m['ind']}  {_pose(1)}\n")],
+        [(r"\n(?P<ind>[ \t]*)b\.sum\(acc\);\n(?P=ind)(?P<step>(?:if \(b\.tid == 0\) )?step\(a, acc, [^;\n]*\);)\n"
+          r"(?:(?P=ind)(?P<sync>b\.sync\(\);)\n)?", _step)],
     ],
     "pose_gn.cu": [
-        (r"\n(?P<ind>[ \t]*)(?P<run>run\(a, b[^;\n]*\);)\n",
-         lambda m: f"\n{m['ind']}KS(2048, {P});\n{m['ind']}{m['run']}\n{m['ind']}KS(2049, {P});\n"),
+        [(r"\n(?P<ind>[ \t]*)(?P<run>run\(a, b[^;\n]*\);)\n",
+          lambda m: f"\n{m['ind']}KS(2048, {P});\n{m['ind']}{m['run']}\n{m['ind']}KS(2049, {P});\n")],
     ],
     "ba_gn.cuh": [
-        (r"PG_HD void apply_tail\(const Args& a, Blk& b, int it\) \{\n", lambda m: f"{m[0]}  {_ba(40)}\n"),
-        (r"\n(?P<ind>[ \t]*)n_dy = b\.sum\(n_dy\);\n", lambda m: f"{m[0]}{m['ind']}{_ba(41)}\n"),
-        (r"\n(?P<ind>[ \t]*)for \(int i = b\.tid; i < 16 \* a\.K; i \+= b\.nthr\) a\.T\[i\] = a\.T_new\[i\];\n",
-         lambda m: f"\n{m['ind']}{_ba(42)}{m[0]}"),
-        (r"\n(?P<ind>[ \t]*)mx = b\.max\(mx\);\n", lambda m: f"{m[0]}{m['ind']}{_ba(43)}\n"),
-        (r"\n(?P<ind>[ \t]*)if \(b\.last\(a\.ticket\)\) apply_tail\(a, b, it\);\n",
-         lambda m: f"\n{m['ind']}if (b.last(a.ticket)) {{\n{m['ind']}  apply_tail(a, b, it);\n"
-                   f"{m['ind']}  {_ba(44)}\n{m['ind']}}}\n"),
+        [(r"PG_HD void backsub_block\(const Args& a, Blk& b[^)\n]*\) \{\n", lambda m: f"{m[0]}  {_ba(50, B0)}\n")],
+        [(r"\n(?P<ind>[ \t]*)if \(b\.bid < s\.n_tiles\) \{\n", _before(51, B0)),
+         (r"\n(?P<ind>[ \t]*)const int L = Blk::kLmPerWarp[^;\n]*;\n", _before(51, B0))],
+        [(r"\n(?P<ind>[ \t]*)tile_blocks\(a, b, s, t, p0, false\);\n", _after(52, FIRST_TILE)),
+         (r"\n[ \t]*b\.put_row\([^;\n]*\);\n(?P<ind>[ \t]*)\}\n", _after(52, FIRST_WARP))],
+        [(r"\n(?P<ind>[ \t]*)b\.sync\(\);\n"
+          r"(?=(?P=ind)if \(b\.tid == 0\)\n[ \t]*for \(int l = 0; l < kTL; \+\+l\) count)", _after(53, FIRST_TILE)),
+         (r"\n(?P<ind>[ \t]*)if \(n_bad > 0 && b\.lane\(\) == 0\) b\.atomic_add\(a\.n_dy, n_bad\);\n",
+          _after(53, FIRST_WARP))],
+        [(r"\n(?P<ind>[ \t]*)if \(b\.last\(a\.ticket\)\) apply_tail\((?P<args>a, b, it(?:, refused)?)\);\n", _ticket)],
+        [(r"PG_HD void apply_tail\(const Args& a, Blk& b, int it(?:, bool refused)?\) \{\n",
+          lambda m: f"{m[0]}  {_ba(40)}\n")],
+        [(r"\n(?P<ind>[ \t]*)n_dy = b\.sum\(n_dy\);\n", _after(41)),
+         (r"\n(?P<ind>[ \t]*)const int n_dy = ld_cg\(a\.n_dy\);\n", _after(41))],
+        [(r"\n(?P<ind>[ \t]*)for \(int i = b\.tid; i < 16 \* a\.K; i \+= b\.nthr\) a\.T\[i\] = a\.T_new\[i\];\n",
+          _before(42)),
+         (r"\n(?P<ind>[ \t]*)if \(bad && !refused\) \*a\.half = 1;\n", _before(42))],
+        [(r"\n(?P<ind>[ \t]*)mx = b\.max\(mx\);\n", _after(43)),
+         (r"\n(?P<ind>[ \t]*)const float mx = \*a\.dx_max;\n", _after(43))],
     ],
 }
-BA_SPANS = {"counts": (40, 41), "X": (41, 42), "T_max": (42, 43), "end": (43, 44)}
+# A working ba_backsub launch's spans, (from tag, to tag): block 0's, then
+# the last block's.
+BA_SPANS = {"prologue": (50, 51), "blocks": (51, 52), "dy": (52, 53), "ticket": (54, 40), "tail_counts": (40, 41),
+            "tail_X": (41, 42), "tail_T_max": (42, 43), "tail_end": (43, 44)}
 
 
 def has_tail() -> bool:
@@ -142,10 +200,13 @@ def instrument(out_dir: str, threads: int | None) -> str:
             continue
         path = os.path.join(src, name)
         text = open(path).read()
-        for pattern, new in marks:
-            text, n = re.subn(pattern, new, text)
-            if n != 1:
-                raise RuntimeError(f"kernel_split: {pattern!r} matched {n} times in {name}, not once")
+        for alternatives in marks:
+            counts = [len(re.findall(pattern, text)) for pattern, _ in alternatives]
+            if sorted(counts) != [0] * (len(counts) - 1) + [1]:
+                raise RuntimeError(f"kernel_split: the alternatives {[p for p, _ in alternatives]!r} matched "
+                                   f"{counts} times in {name}, not one of them once")
+            pattern, new = alternatives[counts.index(1)]
+            text = re.sub(pattern, new, text)
         open(path, "w").write(text)
     path = os.path.join(src, "pose_gn.cuh")
     text = open(path).read()
@@ -234,9 +295,9 @@ def split_pose(lib, path: str, dev, reps: int) -> dict:
 
 
 def split_ba(lib, path: str, dev, reps: int, ns: float) -> dict:
-    """Median ns of each part of the apply step per working iteration
-    (cycles of the last block's clock, at `ns` per cycle: the pose
-    launches' ratio)."""
+    """Median ns of each span of a working ba_backsub launch (`BA_SPANS`:
+    cycles of block 0's clock, then of the last block's, at `ns` per cycle:
+    the pose launches' ratio)."""
     args, kwargs = torch.load(path, weights_only=False)
     args = tensors(args, lambda t: t.to(dev))
     info = {}
@@ -252,7 +313,7 @@ def split_ba(lib, path: str, dev, reps: int, ns: float) -> dict:
                 if t[a] > 0 and t[b] > 0:
                     spans[k].append(float(t[b] - t[a]))
     return {"case": os.path.splitext(os.path.basename(path))[0], "iters": info["iters"],
-            **{f"tail_{k}_ns": statistics.median(v) * ns for k, v in spans.items() if v}}
+            **{f"{k}_ns": statistics.median(v) * ns for k, v in spans.items() if v}}
 
 
 def main(argv=None) -> list:

@@ -11,7 +11,7 @@ the sums that cross landmarks are all-reduced over the group
 
 The reference runs its GN loop as a `lax.while_loop` on the device. Here,
 on CUDA tensors, the solve is the hand-written kernels `ba_terms`,
-`ba_solve` and `ba_backsub`, whose last block runs the apply step
+`ba_solve` and `ba_backsub`, whose last block decides the apply step
 (csrc/ba_gn.cu, algorithm in csrc/ba_gn.cuh), the anchoring and the
 write-back included: a single-device
 solve enqueues `launches_per_solve(iters)` launches and reads nothing back;
@@ -391,15 +391,25 @@ def ba_solve_ref(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams = BA
 # csrc/ba_gn.cuh's constants, sizes and `Args`, restated here; `check_layout`
 # holds them to the library's own when it is bound (kernels.bind_ba).
 MAX_K = 16  # kMaxK: the kernels' largest window
-_TL, _MAX_BLOCKS = 16, 132  # kTL landmarks per tile, kMaxBlocks tile blocks (the H100's SM count)
+_TL = 16  # kTL landmarks per tile
 _TERMS, _ERR_INIT, _ERR_FINAL = 0, 1, 2  # ba_terms modes
 _SUM, _SOLVE = 1, 2  # ba_solve phases
+# The tile launches run one block on each SM. The host build (CPU tensors)
+# runs the H100's 132, so that the CPU tests sum the partials in the card's
+# block order.
+_HOST_SMS = 132
+
+
+def _sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of `dev` (the host build's _HOST_SMS on the
+    CPU)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else _HOST_SMS
 
 
 def launches_per_solve(iters: int) -> int:
     """Kernel launches a single-device solve of `iters` iterations enqueues:
     the starting error, three per iteration (ba_terms, ba_solve and
-    ba_backsub, whose last block runs the apply step; whether or not the
+    ba_backsub, whose last block decides the apply step; whether or not the
     loop has stopped: a stopped iteration's launches return at once), the
     final error. A group solve of n iterations run makes 4 n + 2."""
     return 3 * iters + 2
@@ -419,6 +429,12 @@ def n_sys(n: int) -> int:
     return 18 * n * (n + 1) + 6 * n + 1
 
 
+def blk_rows(n: int) -> int:
+    """Rows of the landmark blocks that ba_terms stores for ba_backsub, M
+    floats each (ba_gn.cuh blk_rows): Cinv, b, and B per optimisable slot."""
+    return 12 + 18 * n
+
+
 class _Args(ctypes.Structure):
     """`ba_gn::Args` of csrc/ba_gn.cuh, field for field."""
 
@@ -430,20 +446,20 @@ class _Args(ctypes.Structure):
         *((n, ctypes.c_float) for n in ("fx", "fy", "cx", "cy", "huber_delta", "lam", "max_trans_update",
                                         "kill_dist")),
         *((n, ctypes.c_int) for n in ("iters", "n_fix", "min_obs", "group", "n_blocks")),
-        *((n, ctypes.c_void_p) for n in ("T_out", "X_out", "killed", "T", "X", "stop_at", "active", "list", "n_act",
-                                         "part", "err_part", "sys", "dx", "T_new", "dx_bad", "dy", "dy_bad",
-                                         "ticket")),
+        *((n, ctypes.c_void_p) for n in ("T_out", "X_out", "killed", "T", "X", "half", "stop_at", "live", "active",
+                                         "list", "n_act", "part", "err_part", "sys", "dx", "T_new", "blk", "step_bad",
+                                         "dx_max", "n_dy", "ticket")),
     ]
 
 
 def check_layout(lib: ctypes.CDLL) -> None:
-    """Raise unless `lib`'s `ba_layout` (csrc/ba_gn.cuh's constants, n_part
-    and n_sys at every count of optimisable slots, sizeof(Args) and its field
-    offsets) equals what this module restates: a drift would corrupt device
-    memory silently."""
+    """Raise unless `lib`'s `ba_layout` (csrc/ba_gn.cuh's constants, n_part,
+    n_sys and blk_rows at every count of optimisable slots, sizeof(Args) and
+    its field offsets) equals what this module restates: a drift would
+    corrupt device memory silently."""
     fields = [f for f, _ in _Args._fields_]
     for n in range(MAX_K + 1):
-        want = [MAX_K, _TL, _MAX_BLOCKS, _TERMS, _ERR_INIT, _ERR_FINAL, _SUM, _SOLVE, n_part(n), n_sys(n),
+        want = [MAX_K, _TL, _TERMS, _ERR_INIT, _ERR_FINAL, _SUM, _SOLVE, n_part(n), n_sys(n), blk_rows(n),
                 ctypes.sizeof(_Args), *(getattr(_Args, f).offset for f in fields)]
         buf = (ctypes.c_int * len(want))()
         got = lib.ba_layout(n, buf, len(want))
@@ -482,12 +498,14 @@ def _ba_kernels(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams, grou
     where given, reads the iteration count once at the end). With a group,
     ba_solve's sum and solve phases sit on both sides of the all-reduce of
     (S, s, n_bad), whose size the host reads once (the count of optimisable
-    slots), and the host reads the stop flag once per iteration."""
+    slots), and the host reads the stop flag once per iteration. The state's
+    T and X hold two halves each (the state, and as it was before the last
+    step); `bufs["T"]` and `bufs["X"]` view the first."""
     K, M = problem.T_cw.shape[0], problem.Xw.shape[0]
     if K > MAX_K:
         raise ValueError(f"ba kernels: a window of {K} keyframes, at most {MAX_K}")
     dev = problem.T_cw.device
-    G = max(1, min(_MAX_BLOCKS, -(-M // _TL)))
+    G = max(1, min(_sm_count(dev), -(-M // _TL)))
     most = n_opt(torch.ones(K, dtype=torch.bool), params)  # the scratch's size: no host read
 
     def empty(n, dtype=torch.float32):
@@ -497,10 +515,11 @@ def _ba_kernels(problem: BAProblem, fx, fy, cx, cy, T_rl, params: BAParams, grou
     ins["T_rl"] = T_rl.contiguous()
     outs = dict(T_out=torch.empty_like(ins["T_cw"]), X_out=torch.empty_like(ins["Xw"]), killed=empty(M, torch.bool))
     stop_at, err_part, sys_ = empty(1, torch.int32), empty(6 * G), empty(n_sys(most))
-    bufs = dict(T=empty(16 * K), X=empty(3 * M), stop_at=stop_at, active=empty(M, torch.bool),
-                list=empty(M, torch.int32), n_act=empty(1, torch.int32), part=empty(G * n_part(most)),
-                err_part=err_part, sys=sys_, dx=empty(6 * K), T_new=empty(16 * K), dx_bad=empty(1, torch.int32),
-                dy=empty(3 * M), dy_bad=empty(G, torch.int32), ticket=empty(1, torch.int32))
+    bufs = dict(T=empty(2 * 16 * K)[:16 * K], X=empty(2 * 3 * M)[:3 * M], half=empty(1, torch.int32),
+                stop_at=stop_at, live=empty(1, torch.int32), active=empty(M, torch.bool), list=empty(M, torch.int32),
+                n_act=empty(1, torch.int32), part=empty(G * n_part(most)), err_part=err_part, sys=sys_,
+                dx=empty(6 * K), T_new=empty(16 * K), blk=empty(blk_rows(most) * M), step_bad=empty(1, torch.int32),
+                dx_max=empty(1), n_dy=empty(1, torch.int32), ticket=empty(1, torch.int32))
     args = _Args(**{k: v.data_ptr() for k, v in {**ins, **outs, **bufs}.items()}, M=M, K=K, fx=float(fx),
                  fy=float(fy), cx=float(cx), cy=float(cy), huber_delta=float(params.huber_delta),
                  lam=float(params.lam), max_trans_update=float(params.max_trans_update),
