@@ -222,5 +222,6 @@ def test_interrupt_dumps_then_exits_130_and_optional_outputs(tmp_path, monkeypat
     assert len(_records(str(out))) == 3 and np.loadtxt(out / "frame_poses.txt").shape == (3, 13)
     assert not (out / "trajectory.png").exists()
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert trace["traceEvents"]
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"vo.entry", "vo.track", "vo.pose"} <= names  # the pipelines' stage spans, on for --trace
     assert sorted(os.listdir(out / "debug")) == ["000000.png", "000001.png", "000002.png"]

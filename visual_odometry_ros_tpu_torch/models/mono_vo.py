@@ -281,49 +281,50 @@ class MonoVO:
         seed on its world ray. `allow` (bool or [] tensor) False births
         nothing: a ray anchored at an untrusted pose poisons the filter.
         Returns (tracks, arena, n born)."""
-        d = self.device
-        n = self.N // 2
-        new_pts, new_ok = self._detect(img, tracks.pts, tracks.valid, n)
-        slots, slot_ok = A.allocate_slots(~arena.alive, n)
-        ok_new = new_ok & slot_ok & allow
-        zeros_n = torch.zeros((n,), dtype=torch.float32, device=d)
-        false_n = torch.zeros((n,), dtype=torch.bool, device=d)
-        xn = cam_mod.pixel_to_normalized(self.cam, new_pts)
-        d_w = _unit(torch.cat([xn, torch.ones_like(xn[:, :1])], dim=-1) @ T_wc[:3, :3].T)
-        seeds0 = DF.init_seeds(torch.full((n,), self.cfg.map.init_depth, dtype=torch.float32, device=d),
-                               depth_min=self.cfg.map.min_depth)
-        dw, desc_ok = F.orb_descriptors(img, new_pts)
-        up = A.indexed_update
-        arena = arena.replace(
-            alive=up(arena.alive, slots, ok_new, op="or"),
-            tracked=up(arena.tracked, slots, ok_new, op="or"),
-            triangulated=up(arena.triangulated, slots, ok_new, false_n),
-            bundled=up(arena.bundled, slots, ok_new, false_n),
-            age=up(arena.age, slots, ok_new, torch.ones((n,), dtype=torch.int32, device=d)),
-            last_pt=up(arena.last_pt, slots, ok_new, new_pts),
-            inv_depth=up(arena.inv_depth, slots, ok_new, seeds0.mu),
-            inv_depth_var=up(arena.inv_depth_var, slots, ok_new, seeds0.sigma2),
-            df_a=up(arena.df_a, slots, ok_new, seeds0.a),
-            df_b=up(arena.df_b, slots, ok_new, seeds0.b),
-            ray_o=up(arena.ray_o, slots, ok_new, T_wc[:3, 3].expand(n, 3)),
-            ray_d=up(arena.ray_d, slots, ok_new, d_w),
-            parallax_last=up(arena.parallax_last, slots, ok_new, zeros_n),
-            parallax_max=up(arena.parallax_max, slots, ok_new, zeros_n),
-            parallax_min=up(arena.parallax_min, slots, ok_new, torch.full_like(zeros_n, A.PARALLAX_MIN_INIT)),
-            parallax_sum=up(arena.parallax_sum, slots, ok_new, zeros_n),
-            parallax_n=up(arena.parallax_n, slots, ok_new, torch.zeros((n,), dtype=torch.int32, device=d)),
-            desc=up(arena.desc, slots, ok_new & desc_ok, F.desc_to_u8(dw)),
-            desc_valid=up(arena.desc_valid, slots, ok_new, desc_ok),
-        )
-        lanes, lane_ok = A.allocate_slots(~tracks.valid, n)
-        put = ok_new & lane_ok
-        tracks = tracks.replace(
-            pts=up(tracks.pts, lanes, put, new_pts),
-            lm_idx=up(tracks.lm_idx, lanes, put, slots),
-            valid=up(tracks.valid, lanes, put, op="or"),
-            scale=up(tracks.scale, lanes, put, torch.ones((n,), dtype=torch.float32, device=d)),
-        )
-        return tracks, arena, torch.sum(put).to(torch.int32)
+        with timer.span("vo.replenish"):
+            d = self.device
+            n = self.N // 2
+            new_pts, new_ok = self._detect(img, tracks.pts, tracks.valid, n)
+            slots, slot_ok = A.allocate_slots(~arena.alive, n)
+            ok_new = new_ok & slot_ok & allow
+            zeros_n = torch.zeros((n,), dtype=torch.float32, device=d)
+            false_n = torch.zeros((n,), dtype=torch.bool, device=d)
+            xn = cam_mod.pixel_to_normalized(self.cam, new_pts)
+            d_w = _unit(torch.cat([xn, torch.ones_like(xn[:, :1])], dim=-1) @ T_wc[:3, :3].T)
+            seeds0 = DF.init_seeds(torch.full((n,), self.cfg.map.init_depth, dtype=torch.float32, device=d),
+                                   depth_min=self.cfg.map.min_depth)
+            dw, desc_ok = F.orb_descriptors(img, new_pts)
+            up = A.indexed_update
+            arena = arena.replace(
+                alive=up(arena.alive, slots, ok_new, op="or"),
+                tracked=up(arena.tracked, slots, ok_new, op="or"),
+                triangulated=up(arena.triangulated, slots, ok_new, false_n),
+                bundled=up(arena.bundled, slots, ok_new, false_n),
+                age=up(arena.age, slots, ok_new, torch.ones((n,), dtype=torch.int32, device=d)),
+                last_pt=up(arena.last_pt, slots, ok_new, new_pts),
+                inv_depth=up(arena.inv_depth, slots, ok_new, seeds0.mu),
+                inv_depth_var=up(arena.inv_depth_var, slots, ok_new, seeds0.sigma2),
+                df_a=up(arena.df_a, slots, ok_new, seeds0.a),
+                df_b=up(arena.df_b, slots, ok_new, seeds0.b),
+                ray_o=up(arena.ray_o, slots, ok_new, T_wc[:3, 3].expand(n, 3)),
+                ray_d=up(arena.ray_d, slots, ok_new, d_w),
+                parallax_last=up(arena.parallax_last, slots, ok_new, zeros_n),
+                parallax_max=up(arena.parallax_max, slots, ok_new, zeros_n),
+                parallax_min=up(arena.parallax_min, slots, ok_new, torch.full_like(zeros_n, A.PARALLAX_MIN_INIT)),
+                parallax_sum=up(arena.parallax_sum, slots, ok_new, zeros_n),
+                parallax_n=up(arena.parallax_n, slots, ok_new, torch.zeros((n,), dtype=torch.int32, device=d)),
+                desc=up(arena.desc, slots, ok_new & desc_ok, F.desc_to_u8(dw)),
+                desc_valid=up(arena.desc_valid, slots, ok_new, desc_ok),
+            )
+            lanes, lane_ok = A.allocate_slots(~tracks.valid, n)
+            put = ok_new & lane_ok
+            tracks = tracks.replace(
+                pts=up(tracks.pts, lanes, put, new_pts),
+                lm_idx=up(tracks.lm_idx, lanes, put, slots),
+                valid=up(tracks.valid, lanes, put, op="or"),
+                scale=up(tracks.scale, lanes, put, torch.ones((n,), dtype=torch.float32, device=d)),
+            )
+            return tracks, arena, torch.sum(put).to(torch.int32)
 
     def _track_stage(self, state: MonoVOState, img):
         """Pyramid, priors, prior-seeded bidirectional KLT, scale refinement.
@@ -475,24 +476,16 @@ class MonoVO:
     def _steady_step(self, state: MonoVOState, img, stage_ms=None):
         """One steady frame: track, 1-point, pose, update. stage_ms: a dict to
         fill with per-stage wall times (time_track, time_1p, time_pose,
-        time_new); each stage then ends in a device synchronise."""
-        watch = timer.StopWatch()
-
-        def lap(name, out):
-            if stage_ms is not None:
-                timer.block_until_ready(out)
-                stage_ms[name] = watch.lap_ms()
-                watch.start()
-            return out
-
-        if stage_ms is not None:
-            timer.block_until_ready((state, img))
-            watch.start()
-        pyr, pts1, ok_track, has_3d, scale_prior = lap("time_track", self._track_stage(state, img))
-        theta_1p, n_pass_1p, ok_track = lap("time_1p", self._onep_stage(state, pts1, ok_track))
-        pose = lap("time_pose", self._pose_stage(state, pts1, ok_track, has_3d))
-        return lap("time_new", self._update_stage(state, pyr, img, pts1, ok_track, scale_prior, *pose,
-                                                  theta_1p, n_pass_1p))
+        time_new); each stage then runs between two device synchronises."""
+        d = self.device
+        with timer.span("vo.track", stage_ms, "time_track", d):
+            pyr, pts1, ok_track, has_3d, scale_prior = self._track_stage(state, img)
+        with timer.span("vo.onep", stage_ms, "time_1p", d):
+            theta_1p, n_pass_1p, ok_track = self._onep_stage(state, pts1, ok_track)
+        with timer.span("vo.pose", stage_ms, "time_pose", d):
+            pose = self._pose_stage(state, pts1, ok_track, has_3d)
+        with timer.span("vo.update", stage_ms, "time_new", d):
+            return self._update_stage(state, pyr, img, pts1, ok_track, scale_prior, *pose, theta_1p, n_pass_1p)
 
     def _steady_step_timed(self, state: MonoVOState, img):
         """The steady step with each stage synchronised and host-timed.
@@ -730,47 +723,45 @@ class MonoVO:
         timed=True (steady phase) synchronises and host-times every stage and
         adds stats["stage_ms"] (time_track, time_1p, time_pose, time_new;
         time_5p after a fallback, time_ba on keyframes)."""
-        im = self._to_image(img)
-        if self.phase != 2:
-            return self._init_frame(im)
+        with timer.span("vo.entry"):
+            im = self._to_image(img)
+            if self.phase != 2:
+                return self._init_frame(im)
 
-        prev_state = self.state
-        if timed:
-            self.state, sc, stage_ms = self._steady_step_timed(self.state, im)
-        else:
-            self.state, sc = self._steady_step(self.state, im)
-            stage_ms = None
-        pose_ok = bool(sc.pose_ok)
-        est_ok = pose_ok
-        if not pose_ok:
-            watch = timer.StopWatch()
-            self.state, fb_ok = self._fallback_5pt(prev_state, self.state)
-            est_ok = bool(fb_ok)
-            if stage_ms is not None:
-                timer.block_until_ready(self.state)
-                stage_ms["time_5p"] = watch.lap_ms()
-        recovered = 0
-        if int(self.state.fail_count) >= self.cfg.motion.recover_after:
-            self.state, mode = self._recover(self.state)
-            recovered = int(mode)
-        # A keyframe needs a trusted pose and no recovery this frame (a
-        # re-bootstrap already pushed a fresh keyframe window).
-        need_kf = bool(sc.need_keyframe) and est_ok and recovered == 0
-        ba_err, n_tri, ba_rejected = None, 0, False
-        if need_kf:
-            watch = timer.StopWatch()
-            self.state, ba_err_t, n_tri_t, ba_acc = self._keyframe_step(self.state)
-            ba_err, n_tri = float(ba_err_t), int(n_tri_t)  # waits for the device
-            ba_rejected = not bool(ba_acc)
-            if stage_ms is not None:
-                stage_ms["time_ba"] = watch.lap_ms()
+            prev_state = self.state
+            if timed:
+                self.state, sc, stage_ms = self._steady_step_timed(self.state, im)
+            else:
+                self.state, sc = self._steady_step(self.state, im)
+                stage_ms = None
+            pose_ok = bool(sc.pose_ok)
+            est_ok = pose_ok
+            if not pose_ok:
+                with timer.span("vo.fallback", stage_ms, "time_5p", self.device):
+                    self.state, fb_ok = self._fallback_5pt(prev_state, self.state)
+                est_ok = bool(fb_ok)
+            recovered = 0
+            if int(self.state.fail_count) >= self.cfg.motion.recover_after:
+                with timer.span("vo.recover"):
+                    self.state, mode = self._recover(self.state)
+                recovered = int(mode)
+            # A keyframe needs a trusted pose and no recovery this frame (a
+            # re-bootstrap already pushed a fresh keyframe window).
+            need_kf = bool(sc.need_keyframe) and est_ok and recovered == 0
+            ba_err, n_tri, ba_rejected = None, 0, False
+            if need_kf:
+                with timer.span("vo.keyframe", stage_ms, "time_ba", self.device):
+                    self.state, ba_err_t, n_tri_t, ba_acc = self._keyframe_step(self.state)
+                ba_err, n_tri = float(ba_err_t), int(n_tri_t)
+                ba_rejected = not bool(ba_acc)
 
-        f = dict(zip(MonoFrameStats._fields, torch.stack([v.to(torch.float64) for v in sc]).cpu().tolist()))
-        T_wc = self.state.T_wc.cpu().numpy()
-        stats = self._record(T_wc, f, int(self.state.fail_count), recovered, need_kf, ba_err, ba_rejected, n_tri)
-        if stage_ms is not None:
-            stats["stage_ms"] = stage_ms
-        return T_wc, stats
+            f = dict(zip(MonoFrameStats._fields, torch.stack([v.to(torch.float64) for v in sc]).cpu().tolist()))
+            T_wc = self.state.T_wc.cpu().numpy()
+            stats = self._record(T_wc, f, int(self.state.fail_count), recovered, need_kf, ba_err, ba_rejected,
+                                 n_tri)
+            if stage_ms is not None:
+                stats["stage_ms"] = stage_ms
+            return T_wc, stats
 
     def track_batch(self, imgs):
         """Process B frames ([B, H, W], camera-native dtype such as uint8) in
@@ -783,42 +774,46 @@ class MonoVO:
                 "track_batch requires a bootstrapped pipeline (phase 2); "
                 "feed initial frames through track_image first"
             )
-        ims = torch.as_tensor(np.asarray(imgs)).to(self.device).to(torch.float32)
-        if self._undist_map is not None:
-            ims = torch.stack([cam_mod.remap(im, self._undist_map) for im in ims])
-        f64 = torch.float64
-        rows = []
-        for im in ims:
-            prev = self.state
-            self.state, sc = self._steady_step(prev, im)
-            est_ok = sc.pose_ok
-            if not bool(sc.pose_ok):
-                self.state, est_ok = self._fallback_5pt(prev, self.state)
-            rec = self._i32(0)
-            if bool(self.state.fail_count >= self.cfg.motion.recover_after):
-                self.state, rec = self._recover(self.state)
-            ba = torch.tensor([-1.0, 0.0, 1.0], dtype=f64, device=self.device)
-            if bool(sc.need_keyframe & est_ok & (rec == 0)):
-                self.state, ba_err, n_tri, ba_acc = self._keyframe_step(self.state)
-                ba = torch.stack([ba_err.to(f64), n_tri.to(f64), ba_acc.to(f64)])
-            rows.append(torch.cat([
-                self.state.T_wc.reshape(16).to(f64),
-                torch.stack([v.to(f64) for v in sc]),
-                torch.stack([rec.to(f64), self.state.fail_count.to(f64), est_ok.to(f64)]),
-                ba,
-            ]))
-        host = torch.stack(rows).cpu().numpy()  # the batch's one readback
-        names = MonoFrameStats._fields + _BATCH_EXTRA
-        out = []
-        for row in host:
-            f = dict(zip(names, row[16:]))
-            need_kf = bool(f["need_keyframe"]) and bool(f["est_ok"]) and int(f["recovered"]) == 0
-            out.append(self._record(
-                row[:16].reshape(4, 4).astype(np.float32), f, int(f["fail_count"]), int(f["recovered"]), need_kf,
-                float(f["ba_err"]) if f["ba_err"] >= 0 else None, need_kf and not bool(f["ba_acc"]),
-                int(f["n_triangulated"]),
-            ))
-        return out
+        with timer.span("vo.entry"):
+            ims = torch.as_tensor(np.asarray(imgs)).to(self.device).to(torch.float32)
+            if self._undist_map is not None:
+                ims = torch.stack([cam_mod.remap(im, self._undist_map) for im in ims])
+            f64 = torch.float64
+            rows = []
+            for im in ims:
+                prev = self.state
+                self.state, sc = self._steady_step(prev, im)
+                est_ok = sc.pose_ok
+                if not bool(sc.pose_ok):
+                    with timer.span("vo.fallback"):
+                        self.state, est_ok = self._fallback_5pt(prev, self.state)
+                rec = self._i32(0)
+                if bool(self.state.fail_count >= self.cfg.motion.recover_after):
+                    with timer.span("vo.recover"):
+                        self.state, rec = self._recover(self.state)
+                ba = torch.tensor([-1.0, 0.0, 1.0], dtype=f64, device=self.device)
+                if bool(sc.need_keyframe & est_ok & (rec == 0)):
+                    with timer.span("vo.keyframe"):
+                        self.state, ba_err, n_tri, ba_acc = self._keyframe_step(self.state)
+                    ba = torch.stack([ba_err.to(f64), n_tri.to(f64), ba_acc.to(f64)])
+                rows.append(torch.cat([
+                    self.state.T_wc.reshape(16).to(f64),
+                    torch.stack([v.to(f64) for v in sc]),
+                    torch.stack([rec.to(f64), self.state.fail_count.to(f64), est_ok.to(f64)]),
+                    ba,
+                ]))
+            host = torch.stack(rows).cpu().numpy()  # the batch's one readback
+            names = MonoFrameStats._fields + _BATCH_EXTRA
+            out = []
+            for row in host:
+                f = dict(zip(names, row[16:]))
+                need_kf = bool(f["need_keyframe"]) and bool(f["est_ok"]) and int(f["recovered"]) == 0
+                out.append(self._record(
+                    row[:16].reshape(4, 4).astype(np.float32), f, int(f["fail_count"]), int(f["recovered"]), need_kf,
+                    float(f["ba_err"]) if f["ba_err"] >= 0 else None, need_kf and not bool(f["ba_acc"]),
+                    int(f["n_triangulated"]),
+                ))
+            return out
 
     def _record(self, T_wc: np.ndarray, f: dict, fail_count: int, recovered: int, need_kf: bool, ba_err,
                 ba_rejected: bool, n_tri: int) -> dict:

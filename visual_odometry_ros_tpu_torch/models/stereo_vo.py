@@ -240,63 +240,64 @@ class StereoVO:
     def _replenish(self, pyr_l, pyr_r, tracks, arena, T_wc, allow=True):
         """Detect in empty bins, stereo-match, verify, triangulate, allocate
         arena slots and merge into free track lanes."""
-        cfg = self.cfg
-        d = self.device
-        n_new = self.N // 2
-        new_pts, new_ok = F.detect_features(
-            pyr_l[0][0], tracks.pts, tracks.valid, gh=cfg.extractor.n_bins_v,
-            gw=cfg.extractor.n_bins_u, n_max=n_new, fast_thresh=cfg.extractor.thres_fastscore,
-            score_min=cfg.extractor.score_min,
-        )
-        new_ok = new_ok & allow
-        disp_prior, prior_ok, ambiguous = self._coarse_disparity_prior(pyr_l, pyr_r, new_pts)
-        pts_r, ok_r, disp = self._stereo_match(pyr_l, pyr_r, new_pts, new_ok, disp_prior=disp_prior)
-        # Birth gate: distinct coarse peak -> KLT must agree (+-4 px);
-        # ambiguous -> veto; no signal -> KLT gates alone.
-        ok_r = ok_r & ~ambiguous & (~prior_ok | (torch.abs(disp - disp_prior) < 4.0))
-        ok_v, _ = SD.verify_disparity_zncc(pyr_l[0][0], pyr_r[0][0], new_pts, disp, new_ok & ok_r)
-        ok_r = ok_r & ok_v
-        Xc, ok3 = self._triangulate_stereo(new_pts, disp, new_ok & ok_r)
-        Xw = geo.transform_points(T_wc, Xc)
-        desc_w, desc_ok = F.orb_descriptors(pyr_l[0][0], new_pts)
-        desc_u8 = F.desc_to_u8(desc_w)
+        with timer.span("vo.replenish"):
+            cfg = self.cfg
+            d = self.device
+            n_new = self.N // 2
+            new_pts, new_ok = F.detect_features(
+                pyr_l[0][0], tracks.pts, tracks.valid, gh=cfg.extractor.n_bins_v,
+                gw=cfg.extractor.n_bins_u, n_max=n_new, fast_thresh=cfg.extractor.thres_fastscore,
+                score_min=cfg.extractor.score_min,
+            )
+            new_ok = new_ok & allow
+            disp_prior, prior_ok, ambiguous = self._coarse_disparity_prior(pyr_l, pyr_r, new_pts)
+            pts_r, ok_r, disp = self._stereo_match(pyr_l, pyr_r, new_pts, new_ok, disp_prior=disp_prior)
+            # Birth gate: distinct coarse peak -> KLT must agree (+-4 px);
+            # ambiguous -> veto; no signal -> KLT gates alone.
+            ok_r = ok_r & ~ambiguous & (~prior_ok | (torch.abs(disp - disp_prior) < 4.0))
+            ok_v, _ = SD.verify_disparity_zncc(pyr_l[0][0], pyr_r[0][0], new_pts, disp, new_ok & ok_r)
+            ok_r = ok_r & ok_v
+            Xc, ok3 = self._triangulate_stereo(new_pts, disp, new_ok & ok_r)
+            Xw = geo.transform_points(T_wc, Xc)
+            desc_w, desc_ok = F.orb_descriptors(pyr_l[0][0], new_pts)
+            desc_u8 = F.desc_to_u8(desc_w)
 
-        slots, slot_ok = A.allocate_slots(~arena.alive, n_new)
-        ok_new = ok3 & slot_ok
-        zeros_n = torch.zeros((n_new,), dtype=torch.float32, device=d)
-        up = A.indexed_update
-        arena = arena.replace(
-            Xw=up(arena.Xw, slots, ok_new, Xw),
-            alive=up(arena.alive, slots, ok_new, op="or"),
-            tracked=up(arena.tracked, slots, ok_new, op="or"),
-            triangulated=up(arena.triangulated, slots, ok_new, op="or"),
-            bundled=up(arena.bundled, slots, ok_new, torch.zeros((n_new,), dtype=torch.bool, device=d)),
-            age=up(arena.age, slots, ok_new, torch.ones((n_new,), dtype=torch.int32, device=d)),
-            last_pt=up(arena.last_pt, slots, ok_new, new_pts),
-            inv_depth=up(arena.inv_depth, slots, ok_new, 1.0 / torch.clamp(Xc[:, 2], min=1e-3)),
-            inv_depth_var=up(arena.inv_depth_var, slots, ok_new, self._invd_sigma2(pyr_l[0][0], new_pts)),
-            parallax_last=up(arena.parallax_last, slots, ok_new, zeros_n),
-            parallax_max=up(arena.parallax_max, slots, ok_new, zeros_n),
-            parallax_min=up(arena.parallax_min, slots, ok_new, torch.full_like(zeros_n, A.PARALLAX_MIN_INIT)),
-            parallax_sum=up(arena.parallax_sum, slots, ok_new, zeros_n),
-            parallax_n=up(arena.parallax_n, slots, ok_new, torch.zeros((n_new,), dtype=torch.int32, device=d)),
-            desc=up(arena.desc, slots, ok_new & desc_ok, desc_u8),
-            # set over EVERY born slot: a reused slot whose birth descriptor
-            # is invalid must not keep the dead landmark's descriptor.
-            desc_valid=up(arena.desc_valid, slots, ok_new, desc_ok),
-        )
+            slots, slot_ok = A.allocate_slots(~arena.alive, n_new)
+            ok_new = ok3 & slot_ok
+            zeros_n = torch.zeros((n_new,), dtype=torch.float32, device=d)
+            up = A.indexed_update
+            arena = arena.replace(
+                Xw=up(arena.Xw, slots, ok_new, Xw),
+                alive=up(arena.alive, slots, ok_new, op="or"),
+                tracked=up(arena.tracked, slots, ok_new, op="or"),
+                triangulated=up(arena.triangulated, slots, ok_new, op="or"),
+                bundled=up(arena.bundled, slots, ok_new, torch.zeros((n_new,), dtype=torch.bool, device=d)),
+                age=up(arena.age, slots, ok_new, torch.ones((n_new,), dtype=torch.int32, device=d)),
+                last_pt=up(arena.last_pt, slots, ok_new, new_pts),
+                inv_depth=up(arena.inv_depth, slots, ok_new, 1.0 / torch.clamp(Xc[:, 2], min=1e-3)),
+                inv_depth_var=up(arena.inv_depth_var, slots, ok_new, self._invd_sigma2(pyr_l[0][0], new_pts)),
+                parallax_last=up(arena.parallax_last, slots, ok_new, zeros_n),
+                parallax_max=up(arena.parallax_max, slots, ok_new, zeros_n),
+                parallax_min=up(arena.parallax_min, slots, ok_new, torch.full_like(zeros_n, A.PARALLAX_MIN_INIT)),
+                parallax_sum=up(arena.parallax_sum, slots, ok_new, zeros_n),
+                parallax_n=up(arena.parallax_n, slots, ok_new, torch.zeros((n_new,), dtype=torch.int32, device=d)),
+                desc=up(arena.desc, slots, ok_new & desc_ok, desc_u8),
+                # set over EVERY born slot: a reused slot whose birth descriptor
+                # is invalid must not keep the dead landmark's descriptor.
+                desc_valid=up(arena.desc_valid, slots, ok_new, desc_ok),
+            )
 
-        lanes, lane_ok = A.allocate_slots(~tracks.valid, n_new)
-        put = ok_new & lane_ok
-        tracks = tracks.replace(
-            pts=up(tracks.pts, lanes, put, new_pts),
-            lm_idx=up(tracks.lm_idx, lanes, put, slots),
-            valid=up(tracks.valid, lanes, put, op="or"),
-            scale=up(tracks.scale, lanes, put, torch.ones((n_new,), dtype=torch.float32, device=d)),
-        )
-        pts_r_new = up(torch.zeros((self.N, 2), dtype=torch.float32, device=d), lanes, put, pts_r)
-        pts_r_valid_new = up(torch.zeros((self.N,), dtype=torch.bool, device=d), lanes, put, op="or")
-        return tracks, arena, pts_r_new, pts_r_valid_new, torch.sum(put).to(torch.int32)
+            lanes, lane_ok = A.allocate_slots(~tracks.valid, n_new)
+            put = ok_new & lane_ok
+            tracks = tracks.replace(
+                pts=up(tracks.pts, lanes, put, new_pts),
+                lm_idx=up(tracks.lm_idx, lanes, put, slots),
+                valid=up(tracks.valid, lanes, put, op="or"),
+                scale=up(tracks.scale, lanes, put, torch.ones((n_new,), dtype=torch.float32, device=d)),
+            )
+            pts_r_new = up(torch.zeros((self.N, 2), dtype=torch.float32, device=d), lanes, put, pts_r)
+            pts_r_valid_new = up(torch.zeros((self.N,), dtype=torch.bool, device=d), lanes, put, op="or")
+            return tracks, arena, pts_r_new, pts_r_valid_new, torch.sum(put).to(torch.int32)
 
     # ------------------------------------------------------------------
     # steps
@@ -599,37 +600,27 @@ class StereoVO:
         once the pose has failed `recover_after` frames in a row.
 
         stage_ms: a dict to fill with per-stage wall times (time_track,
-        time_stereo, time_pose, time_new); each stage then ends in a device
-        synchronise. draw: see `_recover`."""
-        watch = timer.StopWatch()
-
-        def lap(name, out):
-            if stage_ms is not None:
-                timer.block_until_ready(out)
-                stage_ms[name] = watch.lap_ms()
-                watch.start()
-            return out
-
-        if stage_ms is not None:
-            timer.block_until_ready((state, img_l, img_r))
-            watch.start()
-        pyr_l, pyr_r, pts1, ok_track, has_3d, prior_depth, scale_prior = lap(
-            "time_track", self._track_stage(state, img_l, img_r)
-        )
-        pts_r1, ok_stereo, _ = lap(
-            "time_stereo", self._stereo_stage(pyr_l, pyr_r, pts1, ok_track, has_3d, prior_depth)
-        )
-        T10, dT_new, T_wc_new, survived, pose_ok, mean_err = lap(
-            "time_pose", self._pose_stage(state, pts1, pts_r1, ok_track, ok_stereo, has_3d)
-        )
-        new_state, stats = self._update_stage(
-            state, pyr_l, pyr_r, pts1, pts_r1, ok_track, ok_stereo, scale_prior,
-            T10, dT_new, T_wc_new, survived, pose_ok, mean_err,
-        )
+        time_stereo, time_pose, time_new: the update and a recovery); each
+        stage then runs between two device synchronises. draw: see `_recover`."""
+        d = self.device
+        with timer.span("vo.track", stage_ms, "time_track", d):
+            pyr_l, pyr_r, pts1, ok_track, has_3d, prior_depth, scale_prior = self._track_stage(state, img_l, img_r)
+        with timer.span("vo.stereo", stage_ms, "time_stereo", d):
+            pts_r1, ok_stereo, _ = self._stereo_stage(pyr_l, pyr_r, pts1, ok_track, has_3d, prior_depth)
+        with timer.span("vo.pose", stage_ms, "time_pose", d):
+            T10, dT_new, T_wc_new, survived, pose_ok, mean_err = self._pose_stage(
+                state, pts1, pts_r1, ok_track, ok_stereo, has_3d
+            )
+        with timer.span("vo.update", stage_ms, "time_new", d):
+            new_state, stats = self._update_stage(
+                state, pyr_l, pyr_r, pts1, pts_r1, ok_track, ok_stereo, scale_prior,
+                T10, dT_new, T_wc_new, survived, pose_ok, mean_err,
+            )
         if bool(new_state.fail_count >= self.cfg.motion.recover_after):
-            new_state, mode = self._recover(new_state, pyr_l, pyr_r, pts1, ok_track, has_3d, draw)
+            with timer.span("vo.recover", stage_ms, "time_new", d):
+                new_state, mode = self._recover(new_state, pyr_l, pyr_r, pts1, ok_track, has_3d, draw)
             stats = stats._replace(recovered=mode)
-        return lap("time_new", (new_state, stats))
+        return new_state, stats
 
     def _steady_step_timed(self, state: StereoVOState, img_l, img_r):
         """The steady step with each stage synchronised and host-timed.
@@ -784,32 +775,32 @@ class StereoVO:
         timed=True synchronises and host-times every stage and adds
         stats["stage_ms"] (time_track, time_stereo, time_pose, time_new, and
         time_ba on keyframes)."""
-        il = torch.as_tensor(img_l, dtype=torch.float32).to(self.device)
-        ir = torch.as_tensor(img_r, dtype=torch.float32).to(self.device)
-        il, ir = self._rectify(il, ir)
-        if self.state is None:
-            return self._bootstrap(il, ir)
+        with timer.span("vo.entry"):
+            il = torch.as_tensor(img_l, dtype=torch.float32).to(self.device)
+            ir = torch.as_tensor(img_r, dtype=torch.float32).to(self.device)
+            il, ir = self._rectify(il, ir)
+            if self.state is None:
+                return self._bootstrap(il, ir)
 
-        if timed:
-            self.state, fstats, stage_ms = self._steady_step_timed(self.state, il, ir)
-        else:
-            self.state, fstats = self._steady_step(self.state, il, ir)
-        ba_err = None
-        ba_rejected = False
-        if bool(fstats.need_keyframe):
-            watch = timer.StopWatch()
-            self.state, ba_err_t, ba_acc = self._keyframe_step(self.state)
-            ba_err = float(ba_err_t)  # waits for the device: time_ba includes device time
-            ba_rejected = not bool(ba_acc)
+            stage_ms = None
             if timed:
-                stage_ms["time_ba"] = watch.lap_ms()
+                self.state, fstats, stage_ms = self._steady_step_timed(self.state, il, ir)
+            else:
+                self.state, fstats = self._steady_step(self.state, il, ir)
+            ba_err = None
+            ba_rejected = False
+            if bool(fstats.need_keyframe):
+                with timer.span("vo.keyframe", stage_ms, "time_ba", self.device):
+                    self.state, ba_err_t, ba_acc = self._keyframe_step(self.state)
+                ba_err = float(ba_err_t)
+                ba_rejected = not bool(ba_acc)
 
-        host = torch.stack([v.to(torch.float64) for v in fstats]).cpu().tolist()
-        T_wc = self.state.T_wc.cpu().numpy()
-        stats = self._record(T_wc, dict(zip(FrameStats._fields, host)), ba_err, ba_rejected)
-        if timed:
-            stats["stage_ms"] = stage_ms
-        return T_wc, stats
+            host = torch.stack([v.to(torch.float64) for v in fstats]).cpu().tolist()
+            T_wc = self.state.T_wc.cpu().numpy()
+            stats = self._record(T_wc, dict(zip(FrameStats._fields, host)), ba_err, ba_rejected)
+            if timed:
+                stats["stage_ms"] = stage_ms
+            return T_wc, stats
 
     def track_stereo_batch(self, imgs_l, imgs_r):
         """Process B stereo pairs ([B, H, W], camera-native dtype such as
@@ -820,44 +811,46 @@ class StereoVO:
         `flagDoUndistortion`). Poses, frame stats and BA results stay on the
         device until one readback per batch. The first call bootstraps
         frame 0 from the batch head."""
-        il = torch.as_tensor(np.asarray(imgs_l)).to(self.device).to(torch.float32)
-        ir = torch.as_tensor(np.asarray(imgs_r)).to(self.device).to(torch.float32)
-        if self.stereo is not None:
-            pairs = [self._rectify(a, b) for a, b in zip(il, ir)]
-            il = torch.stack([a for a, _ in pairs])
-            ir = torch.stack([b for _, b in pairs])
-        start = 0
-        if self.state is None:
-            self._bootstrap(il[0], ir[0])
-            start = 1
-            if il.shape[0] == 1:
-                return [self.stats_log[-1]]
+        with timer.span("vo.entry"):
+            il = torch.as_tensor(np.asarray(imgs_l)).to(self.device).to(torch.float32)
+            ir = torch.as_tensor(np.asarray(imgs_r)).to(self.device).to(torch.float32)
+            if self.stereo is not None:
+                pairs = [self._rectify(a, b) for a, b in zip(il, ir)]
+                il = torch.stack([a for a, _ in pairs])
+                ir = torch.stack([b for _, b in pairs])
+            start = 0
+            if self.state is None:
+                self._bootstrap(il[0], ir[0])
+                start = 1
+                if il.shape[0] == 1:
+                    return [self.stats_log[-1]]
 
-        no_ba = torch.tensor([-1.0, 1.0], dtype=torch.float64, device=self.device)
-        rows = []
-        for i in range(start, il.shape[0]):
-            self.state, fstats = self._steady_step(self.state, il[i], ir[i])
-            ba = no_ba
-            if bool(fstats.need_keyframe):
-                self.state, ba_err, ba_acc = self._keyframe_step(self.state)
-                ba = torch.stack([ba_err.to(torch.float64), ba_acc.to(torch.float64)])
-            rows.append(torch.cat([
-                self.state.T_wc.reshape(16).to(torch.float64),
-                torch.stack([v.to(torch.float64) for v in fstats]),
-                ba,
-            ]))
-        host = torch.stack(rows).cpu().numpy()  # the batch's one readback
-        out = []
-        n_f = len(FrameStats._fields)
-        for row in host:
-            f = dict(zip(FrameStats._fields, row[16 : 16 + n_f]))
-            ba_err, ba_acc = row[16 + n_f], row[17 + n_f]
-            need_kf = bool(f["need_keyframe"])
-            out.append(self._record(
-                row[:16].reshape(4, 4).astype(np.float32), f,
-                float(ba_err) if need_kf else None, need_kf and not bool(ba_acc),
-            ))
-        return out
+            no_ba = torch.tensor([-1.0, 1.0], dtype=torch.float64, device=self.device)
+            rows = []
+            for i in range(start, il.shape[0]):
+                self.state, fstats = self._steady_step(self.state, il[i], ir[i])
+                ba = no_ba
+                if bool(fstats.need_keyframe):
+                    with timer.span("vo.keyframe"):
+                        self.state, ba_err, ba_acc = self._keyframe_step(self.state)
+                    ba = torch.stack([ba_err.to(torch.float64), ba_acc.to(torch.float64)])
+                rows.append(torch.cat([
+                    self.state.T_wc.reshape(16).to(torch.float64),
+                    torch.stack([v.to(torch.float64) for v in fstats]),
+                    ba,
+                ]))
+            host = torch.stack(rows).cpu().numpy()  # the batch's one readback
+            out = []
+            n_f = len(FrameStats._fields)
+            for row in host:
+                f = dict(zip(FrameStats._fields, row[16 : 16 + n_f]))
+                ba_err, ba_acc = row[16 + n_f], row[17 + n_f]
+                need_kf = bool(f["need_keyframe"])
+                out.append(self._record(
+                    row[:16].reshape(4, 4).astype(np.float32), f,
+                    float(ba_err) if need_kf else None, need_kf and not bool(ba_acc),
+                ))
+            return out
 
     def debug_overlay(self, img_l: np.ndarray) -> np.ndarray:
         """Debug image of the current frame: tracked features green, new

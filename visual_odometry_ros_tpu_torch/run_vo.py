@@ -48,8 +48,8 @@ def parse_args(argv=None):
     p.add_argument("--out", default="out/run")
     p.add_argument("--device", default="cuda", help="torch device of the pipeline (cuda, cuda:1, cpu)")
     p.add_argument("--trace", default=None, metavar="DIR",
-                   help="write a torch.profiler Chrome trace of the run (CUDA activity on the card) "
-                        "to DIR/trace.json")
+                   help="write a torch.profiler Chrome trace of the run (the pipelines' stage spans, "
+                        "CUDA activity on the card) to DIR/trace.json")
     p.add_argument("--batch", type=int, default=0, metavar="B",
                    help="serving path: B frames per device call (0 = per-frame)")
     p.add_argument("--stage-timing", action="store_true",
@@ -119,15 +119,18 @@ def build_dataset(args):
 
 @contextlib.contextmanager
 def device_trace(out_dir: str, device):
-    """torch.profiler over the block (CUDA activity on a card), written as a
-    Chrome trace to out_dir/trace.json when the block ends."""
+    """torch.profiler over the block (CUDA activity on a card), with the
+    pipelines' stage spans on (`vo.entry`, `vo.track`, ... above the kernels),
+    written as a Chrome trace to out_dir/trace.json when the block ends."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from .utils import timer
 
     acts = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    with timer.tracing(True), profile(activities=acts) as prof:
         yield prof
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))

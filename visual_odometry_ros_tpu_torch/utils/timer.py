@@ -1,19 +1,33 @@
-"""Wall-clock instrumentation: tic/toc, StopWatch, per-stage accumulators.
+"""Wall-clock instrumentation: tic/toc, StopWatch, per-stage accumulators,
+and the pipelines' stage spans.
 
 Counterpart of `visual_odometry_ros_tpu/utils/timer.py`. CUDA work is
 asynchronous, so `toc` and `StageTimer.stage` can first wait for the
 devices that hold a given tree of tensors (`block_until_ready`).
+
+`span` marks a stage of the pipelines' entry points (`vo.entry`, `vo.track`,
+...). Every entry is counted in `SPAN_COUNTS`. With `tracing` switched on a
+span is a `torch.profiler.record_function` range: a profiler trace then
+holds it as a host event on the clock of the device's kernels and copies.
+Off (the default) a span does nothing else: no profiler range, no clock
+read, no sync.
 """
 
 from __future__ import annotations
 
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
 
 _T0 = [time.perf_counter()]
+
+# Entries of each span by name since the last reset_span_counts(), tracing
+# on or off (the counterpart of ops/kernels.LAUNCHES for spans).
+SPAN_COUNTS: dict = defaultdict(int)
+_TRACING = [False]
+_OFF = nullcontext()
 
 
 def _devices(tree, out: set) -> set:
@@ -102,3 +116,45 @@ class StageTimer:
 
     def summary(self) -> dict:
         return {k: self.mean_ms(k) for k in self.totals_ms}
+
+
+def reset_span_counts() -> None:
+    SPAN_COUNTS.clear()
+
+
+@contextmanager
+def tracing(on: bool = True):
+    """Spans are profiler ranges inside the block (on) or not (off); the
+    setting before the block is restored after it."""
+    prev = _TRACING[0]
+    _TRACING[0] = bool(on)
+    try:
+        yield
+    finally:
+        _TRACING[0] = prev
+
+
+def span(name: str, stage_ms: dict | None = None, key: str | None = None, device=None):
+    """The context of one stage `name`, counted in SPAN_COUNTS.
+
+    With tracing on, a `record_function(name)` range; off, a shared no-op.
+    With `stage_ms` (the entry points' timed=True path) the stage runs
+    between two synchronises of `device` (a CUDA device; nothing to wait
+    for on the CPU) and its wall ms are added to stage_ms[key]."""
+    SPAN_COUNTS[name] += 1
+    if stage_ms is not None:
+        return _timed(name, stage_ms, key, torch.device(device or "cpu"))
+    if _TRACING[0]:
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+@contextmanager
+def _timed(name: str, stage_ms: dict, key: str, device: torch.device):
+    wait = torch.cuda.synchronize if device.type == "cuda" else (lambda _: None)
+    with torch.profiler.record_function(name) if _TRACING[0] else _OFF:
+        wait(device)
+        t0 = time.perf_counter()
+        yield
+        wait(device)
+        stage_ms[key] = stage_ms.get(key, 0.0) + (time.perf_counter() - t0) * 1e3

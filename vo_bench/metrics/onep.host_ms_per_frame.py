@@ -1,0 +1,9 @@
+"""onep.host_ms_per_frame: host ms of the pipelines' span `vo.onep`, mono's 1-point stage
+(`ops/epipolar.py`), over the traced window's frames; None where the trace's count of a span is not
+the program's."""
+
+from vo_bench.stages import host_ms_per_frame
+
+
+def read(run):
+    return host_ms_per_frame(run, ["vo.onep"])

@@ -1,0 +1,9 @@
+"""stereo.host_ms_per_frame: host ms of the pipelines' span `vo.stereo`, stereo's matching stage
+(`ops/stereo_disparity.py`, `ops/klt.py`), over the traced window's frames; None where the trace's
+count of a span is not the program's."""
+
+from vo_bench.stages import host_ms_per_frame
+
+
+def read(run):
+    return host_ms_per_frame(run, ["vo.stereo"])

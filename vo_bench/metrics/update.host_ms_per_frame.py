@@ -1,0 +1,9 @@
+"""update.host_ms_per_frame: host ms of the pipelines' span `vo.update`, the update stage with its
+replenishment (`mapping/arena.py`, `ops/features.py`), over the traced window's frames; None where
+the trace's count of a span is not the program's."""
+
+from vo_bench.stages import host_ms_per_frame
+
+
+def read(run):
+    return host_ms_per_frame(run, ["vo.update"])
